@@ -1,0 +1,126 @@
+// Fused warp: k-NN against the nodes, the reference's DQB blend, and the
+// transform of each point and "normal", plus the unsupported ratio.
+//
+// Replaces warp_fused_tpu with blend="dqb" (dynfu_tpu/ops/warp_pallas.py:171,
+// body _warp_kernel :60). The TPU kernel runs k argmin rounds over a (D, TQ)
+// VMEM block and fetches node state by one-hot matmuls. Here one thread per
+// query selects its k nodes with the routine shared with knn.cu (positions
+// staged in shared memory), reads each selected node's dq, dg_w and mask
+// directly (L2-resident: D*13 floats), and runs the blend in registers.
+// Bound: D*Q shared-memory distance evaluations; the output is 15 floats
+// per query and no intermediate reaches device memory.
+//
+// Reference quirks kept (warp_pallas.py:98-106,121-126,154-158): invalid
+// slots multiply by the identity, node weights scale the dual part only,
+// the product is sequential in nearest-first order, the real part alone is
+// normalised, and the "normal" gets the full transform, translation
+// included. The point transform is dq_transform_point's formula, in the
+// plain version's operation order (ops/warp_cuda.py).
+#include "topk.cuh"
+
+struct Q4 {
+  float w, x, y, z;
+};
+
+__device__ __forceinline__ Q4 qmul(Q4 a, Q4 b) {
+  return {a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z,
+          a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
+          a.w * b.y - a.x * b.z + a.y * b.w + a.z * b.x,
+          a.w * b.z + a.x * b.y - a.y * b.x + a.z * b.w};
+}
+
+__device__ __forceinline__ float3 cross3(float3 a, float3 b) {
+  return make_float3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+                     a.x * b.y - a.y * b.x);
+}
+
+// v + 2 rv x (rv x v + rw v) + 2 (rw dv - dw rv + rv x dv)
+__device__ __forceinline__ float3 transform(Q4 r, Q4 d, float3 v) {
+  float3 rv = make_float3(r.x, r.y, r.z), dv = make_float3(d.x, d.y, d.z);
+  float3 c1 = cross3(rv, v);
+  float3 inner = make_float3(c1.x + r.w * v.x, c1.y + r.w * v.y,
+                             c1.z + r.w * v.z);
+  float3 c2 = cross3(rv, inner);
+  float3 c3 = cross3(rv, dv);
+  return make_float3(
+      v.x + 2.0f * c2.x + 2.0f * (r.w * dv.x - d.w * rv.x + c3.x),
+      v.y + 2.0f * c2.y + 2.0f * (r.w * dv.y - d.w * rv.y + c3.y),
+      v.z + 2.0f * c2.z + 2.0f * (r.w * dv.z - d.w * rv.z + c3.z));
+}
+
+template <int K>
+__global__ void warp_fused_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ nrm,
+                                  const float* __restrict__ pos,
+                                  const float* __restrict__ dqs,
+                                  const float* __restrict__ w,
+                                  const unsigned char* __restrict__ mask,
+                                  int Q, int D, float* __restrict__ warped,
+                                  float* __restrict__ wnormals,
+                                  float* __restrict__ bdq,
+                                  float* __restrict__ ratio_out) {
+  extern __shared__ float4 s_nodes[];
+  stage_nodes(s_nodes, pos, mask, D);
+  int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (qi >= Q) return;
+  float3 v = make_float3(q[3 * qi], q[3 * qi + 1], q[3 * qi + 2]);
+  TopK<K> top;
+  scan_nodes<K>(top, s_nodes, D, v.x, v.y, v.z);
+
+  Q4 ar = {1.f, 0.f, 0.f, 0.f}, ad = {0.f, 0.f, 0.f, 0.f};
+  float ratio = CUDART_INF_F;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    int j = top.i[r];
+    float m = top.d[r];
+    bool valid = mask[j] != 0;
+    float dg_w = fmaxf(w[j], 1e-12f);
+    float wt = expf(-m / (2.0f * dg_w * dg_w));
+    ratio = fminf(ratio, valid ? sqrtf(m) / dg_w : CUDART_INF_F);
+    const float* n = dqs + 8 * (long long)j;
+    Q4 sr = valid ? Q4{n[0], n[1], n[2], n[3]} : Q4{1.f, 0.f, 0.f, 0.f};
+    Q4 sd = valid ? Q4{n[4] * wt, n[5] * wt, n[6] * wt, n[7] * wt}
+                  : Q4{0.f, 0.f, 0.f, 0.f};
+    Q4 nr = qmul(ar, sr);
+    Q4 d1 = qmul(ar, sd), d2 = qmul(ad, sr);
+    ad = {d1.w + d2.w, d1.x + d2.x, d1.y + d2.y, d1.z + d2.z};
+    ar = nr;
+  }
+  float mag = fmaxf(
+      sqrtf(ar.w * ar.w + ar.x * ar.x + ar.y * ar.y + ar.z * ar.z), 1e-30f);
+  Q4 rn = {ar.w / mag, ar.x / mag, ar.y / mag, ar.z / mag};
+
+  float3 pv = transform(rn, ad, v);
+  float3 n3 = make_float3(nrm[3 * qi], nrm[3 * qi + 1], nrm[3 * qi + 2]);
+  float3 pn = transform(rn, ad, n3);
+  warped[3 * qi] = pv.x;
+  warped[3 * qi + 1] = pv.y;
+  warped[3 * qi + 2] = pv.z;
+  wnormals[3 * qi] = pn.x;
+  wnormals[3 * qi + 1] = pn.y;
+  wnormals[3 * qi + 2] = pn.z;
+  float* o = bdq + 8 * (long long)qi;
+  o[0] = rn.w; o[1] = rn.x; o[2] = rn.y; o[3] = rn.z;
+  o[4] = ad.w; o[5] = ad.x; o[6] = ad.y; o[7] = ad.z;
+  ratio_out[qi] = ratio;
+}
+
+DYNFU_API int dynfu_warp_fused(const float* queries, const float* normals,
+                               const float* pos, const float* dqs,
+                               const float* w, const unsigned char* mask,
+                               int Q, int D, int k, float* warped,
+                               float* wnormals, float* bdq, float* ratio,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int T = 128;
+  size_t smem = (size_t)D * sizeof(float4);
+  DYNFU_DISPATCH_K(k, {
+    cudaFuncSetAttribute(warp_fused_kernel<KK>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    warp_fused_kernel<KK><<<dynfu_blocks(Q, T), T, smem, s>>>(
+        queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
+        ratio);
+  });
+  return (int)cudaGetLastError();
+}

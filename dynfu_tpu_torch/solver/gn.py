@@ -1,0 +1,203 @@
+"""Gauss-Newton solver for the non-rigid warp-field energy.
+
+Port of dynfu_tpu/solver/gn.py (the reference's Opt/Terra energy,
+energy.t, driven by opt_solver.cpp). Unknowns are per-node translations
+t (D, 3); the energy is
+
+  data: r_v  = sqrt(tukey_v) * (live_v - canonical_v - sum_k w_vk t_{n_k})
+  reg:  r_nj = w_reg * (t_j - t_n), w_reg = sqrt(lambda / (D_active * KNN))
+
+assembled as dense normal equations and solved by Jacobi-preconditioned CG
+with the reference schedule (24 outer / 16 nonlinear / 256 linear
+iterations, earlyOut). The data-term Gram is the CUDA kernel in
+solver/gram_cuda.py.
+
+The CG loop checks its tolerance on the host between trips of 8 steps, as
+the source's while_loop does; every other quantity stays on the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dynfu_tpu_torch.core import dualquat as dq
+from dynfu_tpu_torch.solver import gram_cuda
+from dynfu_tpu_torch.warp import field as wfield
+
+_UNROLL = 8  # CG steps per tolerance check
+
+
+class SolveStats(NamedTuple):
+    initial_cost: torch.Tensor
+    final_cost: torch.Tensor
+    cg_iters: torch.Tensor
+    # mean Huber weight over active nodes; computed on schedule, as the
+    # reference does, but read by no energy term (energy.t)
+    mean_huber: torch.Tensor
+
+
+def _norm(x):
+    return torch.sqrt(torch.sum(x * x, dim=-1))
+
+
+def tukey_biweights(warped_canonical, live, tukey_offset: float,
+                    psi_data: float):
+    """Tukey biweight per vertex from the current residual
+    (opt_solver.cpp:204-231)."""
+    err = _norm(live - warped_canonical) / tukey_offset
+    w = (1.0 - (err / psi_data) ** 2) ** 2
+    return torch.where(err < psi_data, w, 0.0)
+
+
+def huber_weights(wf: wfield.WarpField, reg_idx, psi_reg: float):
+    """Huber weights on node-pair disagreement, keeping only the LAST
+    neighbour's weight per node (the reference's loop overwrite)."""
+    n_pos = wf.pos[reg_idx]  # (D, K, 3)
+    t1 = dq.dq_transform_point(wf.dqs[:, None, :], n_pos)
+    t2 = dq.dq_transform_point(wf.dqs[reg_idx], n_pos)
+    e = torch.abs(_norm(t1 - t2))
+    w = torch.where(e <= psi_reg, 1.0, psi_reg / torch.clamp_min(e, 1e-30))
+    return w[:, -1]
+
+
+def _dense_reg_normal(reg_idx, edge_mask, D: int):
+    """A_reg = M^T M, M the masked edge incidence rows onehot(j) -
+    onehot(n); self-edges vanish."""
+    eye = torch.eye(D, dtype=torch.float32, device=reg_idx.device)
+    A = torch.zeros((D, D), dtype=torch.float32, device=reg_idx.device)
+    for r in range(reg_idx.shape[1]):
+        M = (eye[reg_idx[:, r]] - eye) * edge_mask[:, r, None]
+        A = A + M.T @ M
+    return A
+
+
+def build_graphs(wf: wfield.WarpField, canonical_v, knn_k: int = wfield.KNN):
+    """Data graph: each vertex and its K nearest nodes; reg graph: each
+    node and its K nearest nodes, itself first (opt_solver.cpp:56-105)."""
+    data_idx, _ = wfield.find_neighbors(wf, canonical_v, knn_k)
+    reg_idx, _ = wfield.find_neighbors(wf, wf.pos, knn_k)
+    return data_idx, reg_idx
+
+
+def _matvec(M, q):
+    return torch.sum(M[:, :, None] * q[None, :, :], dim=1)
+
+
+def _pcg(A, b, t_init, linear_iter: int, cg_tol: float):
+    """Jacobi-preconditioned CG: (t, iterations)."""
+    diag = torch.diagonal(A)
+    inv_diag = torch.where(diag > 0, 1.0 / torch.clamp_min(diag, 1e-30),
+                           0.0)[:, None]
+    t = t_init
+    r = b - _matvec(A, t)
+    z = inv_diag * r
+    p = z
+    rz = torch.sum(r * z)
+    i = torch.zeros((), dtype=torch.int32, device=A.device)
+    while bool((i < linear_iter) & (rz > cg_tol)):
+        for _ in range(_UNROLL):
+            active = rz > cg_tol  # freezes converged state inside the trip
+            ap = _matvec(A, p)
+            denom = torch.sum(p * ap)
+            alpha = torch.where(denom > 0, rz / torch.clamp_min(denom, 1e-30),
+                                0.0)
+            t2 = t + alpha * p
+            r2 = r - alpha * ap
+            z2 = inv_diag * r2
+            rz_new = torch.sum(r2 * z2)
+            beta = torch.where(rz > 0, rz_new / torch.clamp_min(rz, 1e-30),
+                               0.0)
+            p2 = z2 + beta * p
+            t = torch.where(active, t2, t)
+            r = torch.where(active, r2, r)
+            z = torch.where(active, z2, z)
+            p = torch.where(active, p2, p)
+            rz = torch.where(active, rz_new, rz)
+            i = i + active.to(torch.int32)
+    return t, i
+
+
+def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
+          graph_w=None, tukey_offset: float = 4.652,
+          psi_data: float = 0.01, lambda_reg: float = 200.0,
+          psi_reg: float = 1e-4, linear_iter: int = 256,
+          cg_tol: float = 1e-12, knn_k: int = wfield.KNN,
+          nonlinear_iter: int = 16, num_iter: int = 24,
+          early_out: bool = True):
+    """One warp solve: (updated WarpField, SolveStats).
+
+    graph_w = (data_idx, data_w, warped) hands in prefetched data-graph rows
+    (the engine fetches them with the correspondence); otherwise the k-NN
+    and the DQB warp of `canonical_v` run here. With early_out the outer loop
+    stops after its first iteration (the reference's only mode); without,
+    each outer iteration re-weights from the current estimate."""
+    dev = wf.pos.device
+    canonical_v = torch.as_tensor(canonical_v, dtype=torch.float32,
+                                  device=dev)
+    live_v = torch.as_tensor(live_v, dtype=torch.float32, device=dev)
+    N, D = canonical_v.shape[0], wf.capacity
+    if vert_mask is None:
+        vert_mask = torch.ones((N,), dtype=torch.bool, device=dev)
+
+    if graph_w is not None:
+        data_idx, data_w, warped = graph_w
+        data_idx = data_idx.to(torch.int32)
+    else:
+        data_idx, _, n_pos, n_dq, n_w, n_valid = wfield.neighbor_features(
+            wf, canonical_v, knn_k)
+        blend = wfield._dqb_from_features(canonical_v, n_pos, n_dq, n_w,
+                                          n_valid)
+        warped = dq.dq_transform_point(blend, canonical_v)
+        data_w = wfield.transformation_weights(n_pos, n_w,
+                                               canonical_v[:, None, :])
+        data_w = torch.where(n_valid, data_w, 0.0)
+    data_idx = data_idx.to(torch.int32).contiguous()
+    data_w = data_w.contiguous()
+    reg_idx, _ = wfield.find_neighbors(wf, wf.pos, knn_k)
+
+    s2 = tukey_biweights(warped, live_v, tukey_offset, psi_data)
+    s2 = torch.where(vert_mask, s2, 0.0)
+
+    D_active = torch.clamp_min(wf.count.to(torch.float32), 1.0)
+    reg_w2 = lambda_reg / (D_active * knn_k)
+    edge_mask = (wf.mask[:, None] & wf.mask[reg_idx]).to(torch.float32)
+    delta = (live_v - canonical_v).contiguous()
+    A_reg = _dense_reg_normal(reg_idx, edge_mask, D)
+
+    def assemble_and_solve(s2_k, t_init):
+        A_data, b = gram_cuda.data_normal(data_idx, data_w,
+                                          s2_k.contiguous(), delta, D)
+        A = A_data + reg_w2 * A_reg
+        # inner nonlinear loop: the energy is linear in t, so each
+        # warm-started restart sees the same system
+        t = t_init
+        for _ in range(max(nonlinear_iter - 1, 0)):
+            t, _ = _pcg(A, b, t, linear_iter, cg_tol)
+        t, iters = _pcg(A, b, t, linear_iter, cg_tol)
+        c0 = torch.sum(s2_k[:, None] * delta * delta)
+        costt = c0 - 2.0 * torch.sum(t * b) + torch.sum(t * _matvec(A, t))
+        return t, iters, c0, costt
+
+    def huber_mean(t_cur):
+        wf_cur = wfield.compose_translations(
+            wf, torch.where(wf.mask[:, None], t_cur, 0.0))
+        hw = huber_weights(wf_cur, reg_idx, psi_reg)
+        m = wf.mask.to(torch.float32)
+        return torch.sum(hw * m) / torch.clamp_min(torch.sum(m), 1.0)
+
+    zeros = torch.zeros((D, 3), dtype=torch.float32, device=dev)
+    mean_huber = huber_mean(zeros)
+    t, iters, initial_cost, costt = assemble_and_solve(s2, zeros)
+    for _ in range((1 if early_out else num_iter) - 1):
+        idx = data_idx.to(torch.int64)
+        warped_k = warped + torch.sum(data_w[..., None] * t[idx], dim=1)
+        s2_k = torch.where(vert_mask, tukey_biweights(
+            warped_k, live_v, tukey_offset, psi_data), 0.0)
+        mean_huber = huber_mean(t)
+        t, iters, _, costt = assemble_and_solve(s2_k, t)
+
+    stats = SolveStats(initial_cost, costt, iters, mean_huber)
+    t = torch.where(wf.mask[:, None], t, 0.0)
+    return wfield.compose_translations(wf, t), stats

@@ -1,0 +1,298 @@
+"""PyTorch port vs JAX reference: k-NN with feature fetch, the windowed
+1-NN correspondence and its tiers, the fused DQB warp, the unsupported
+mask and node insertion. Seeded numpy inputs, CPU; Pallas kernels run in
+interpret mode, as the JAX package's own tests run them.
+
+The tests marked `cuda` hold the k-NN, warp and 1-NN CUDA kernels against
+their plain versions at edge-case shapes (odd sizes, fewer valid nodes
+than k, all-inf and NaN rows, ragged sub-tiles, an empty window); they
+skip without a card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynfu_tpu.core import dualquat as jdq
+from dynfu_tpu.ops import knn as jknn
+from dynfu_tpu.ops import knn_pallas, warp_pallas
+from dynfu_tpu.warp import field as jfield
+from dynfu_tpu_torch.ops import knn as tknn
+from dynfu_tpu_torch.ops import corr_cuda, knn_cuda, warp_cuda
+from dynfu_tpu_torch.warp import field as tfield
+
+# small tensors: one intra-op thread avoids contending with XLA's thread
+# pool (the test gate runs two files at a time)
+torch.set_num_threads(1)
+
+BIG = 3e38
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _nodes(rng, D, n_masked, rot=0.2, trans=0.02, dg_w=0.3):
+    pos = rng.uniform(0, 1, (D, 3)).astype(np.float32)
+    axis = rng.normal(0, rot / 2, (D, 3)).astype(np.float32)
+    t = rng.normal(0, trans, (D, 3)).astype(np.float32)
+    dqs = np.array(jdq.dq_from_rodrigues(jnp.asarray(axis), jnp.asarray(t)))
+    w = np.full(D, dg_w, np.float32)
+    mask = np.ones(D, bool)
+    mask[rng.choice(D, n_masked, replace=False)] = False
+    return pos, dqs, w, mask
+
+
+def test_knn_gather_plain_matches_jax(k=8):
+    """idx equal; sqd and fetched features within 1e-6 (the XLA path's
+    |q|^2 - 2q.p + |p|^2 form rounds differently from the direct
+    difference; the fetch itself is exact)."""
+    rng = np.random.default_rng(10)
+    pos, dqs, w, mask = _nodes(rng, 64, 10)
+    table = rng.normal(size=(64, 13)).astype(np.float32)
+    q = rng.uniform(-0.1, 1.1, (500, 3)).astype(np.float32)
+    got = knn_cuda.knn_gather(_t(q), _t(pos), k, _t(table), _t(mask))
+    for want in (
+            jknn.knn_gather(jnp.asarray(q), jnp.asarray(pos), k,
+                            jnp.asarray(table), jnp.asarray(mask)),
+            knn_pallas.knn_gather_tpu(jnp.asarray(q), jnp.asarray(pos), k,
+                                      jnp.asarray(table), jnp.asarray(mask),
+                                      tq=256, interpret=True)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                                   rtol=0, atol=1e-6)
+
+
+def _grid(rng, shape, lo, hi, step=2.0 ** -10):
+    """Values on a 2^-10 grid: at most 16 significant bits, which the
+    Pallas kernel's hi/lo bfloat16 fetch (~16-bit relative) returns
+    exactly — so its outputs can be compared for equality."""
+    return (np.round(rng.uniform(lo, hi, shape) / step) * step).astype(
+        np.float32)
+
+
+def test_window_sweep_plain_matches_pallas_interpret(F=22):
+    """The 1-NN sweep's plain version, behind the port's window placement,
+    against knn._window_pass_pallas(interpret=True) with the engine's
+    22-column payload: fetched rows and certificates equal."""
+    rng = np.random.default_rng(11)
+    P, Q, W = 3000, 4096, 1024
+    pts = _grid(rng, (P, 3), -1, 1)
+    pts[rng.random(P) < 0.05] = BIG  # masked points
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    qs = _grid(rng, (Q, 3), -1, 1)
+    qs = qs[np.argsort(qs[:, 0] + rng.normal(0, 0.01, Q), kind="stable")]
+    qs[rng.random(Q) < 0.05] = BIG  # masked queries
+    vals = _grid(rng, (P, F), 0, 4, 2.0 ** -8)
+    jv, je = jknn._window_pass_pallas(
+        jnp.asarray(qs), jnp.asarray(pts), Q, P, W, tq=2048, interpret=True,
+        vals=jnp.asarray(vals))
+    tv, te = tknn._window_pass(_t(qs), _t(pts), W, _t(vals), tq=2048)
+    assert 0 < int(te.sum()) < Q
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_nn1_gather_xwindow_tiers_match_jax():
+    """With escalate and rescue the tiers certify every query on both
+    sides (the base windows differ: the JAX CPU path places 4096-point
+    blocks per 4096 queries, the port the kernel path's 4096-point window
+    per 2048-query tile, at 128-point granularity), and then the fetched
+    rows are the true 1-NN's: equal."""
+    rng = np.random.default_rng(12)
+    P = 12288
+    u = rng.normal(size=(P, 3))
+    pts = (0.3 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(
+        np.float32)
+    pmask = rng.random(P) > 0.05
+    qs = pts + rng.normal(0, 0.003, pts.shape).astype(np.float32)
+    qs[:100] += np.float32(0.08)  # moving-edge queries: NN far outside
+    qs = qs[np.argsort(qs[:, 0], kind="stable")]
+    qmask = rng.random(P) > 0.02
+    vals = rng.normal(size=(P, 5)).astype(np.float32)
+    kw = dict(block=4096, window_blocks=1, escalate=1024, rescue=4096)
+    jv, je = jknn.nn1_gather_xwindow(
+        jnp.asarray(qs), jnp.asarray(pts), jnp.asarray(vals),
+        jnp.asarray(pmask), jnp.asarray(qmask), **kw)
+    tv, te = tknn.nn1_gather_xwindow(_t(qs), _t(pts), _t(vals), _t(pmask),
+                                     _t(qmask), **kw)
+    # the base pass alone leaves failures, so the tiers are exercised
+    _, base = tknn.nn1_gather_xwindow(_t(qs), _t(pts), _t(vals), _t(pmask),
+                                      _t(qmask), block=4096, window_blocks=1)
+    assert int((~base & _t(qmask)).sum()) > 0
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(te.numpy(), qmask)
+    np.testing.assert_array_equal(tv.numpy()[qmask], np.asarray(jv)[qmask])
+
+
+def _jwf(pos, dqs, w, mask):
+    return jfield.WarpField(jnp.asarray(pos), jnp.asarray(dqs), jnp.asarray(w),
+                            jnp.asarray(mask), jnp.int32(mask.sum()))
+
+
+def _twf(pos, dqs, w, mask):
+    return tfield.WarpField(_t(pos), _t(dqs), _t(w), _t(mask),
+                            torch.tensor(int(mask.sum()), dtype=torch.int32))
+
+
+def test_warp_plain_matches_jax():
+    """Warped points and "normals" within 1e-5 m of warp_points_normals
+    (XLA) and of warp_fused_tpu(interpret=True, blend="dqb"), whose blended
+    DQ and unsupported ratio agree too (f32 roundoff of the two formulas
+    of the DQ transform, through an 8-term product)."""
+    rng = np.random.default_rng(13)
+    pos, dqs, w, mask = _nodes(rng, 64, 8)
+    q = rng.uniform(0, 1, (700, 3)).astype(np.float32)
+    n = rng.normal(size=(700, 3)).astype(np.float32)
+    got = warp_cuda.warp_fused(_t(q), _t(n), _t(pos), _t(dqs), _t(w),
+                               _t(mask))
+    jwp, jwn = jfield.warp_points_normals(_jwf(pos, dqs, w, mask),
+                                          jnp.asarray(q), jnp.asarray(n))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(jwp), atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(jwn), atol=1e-5)
+    want = warp_pallas.warp_fused_tpu(
+        jnp.asarray(q), jnp.asarray(n), jnp.asarray(pos), jnp.asarray(dqs),
+        jnp.asarray(w), jnp.asarray(mask), blend="dqb", tq=256,
+        interpret=True)
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _sphere_canonical(rng, n=3000):
+    u = rng.normal(size=(n, 3))
+    v = (0.5 + 0.3 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(
+        np.float32)
+    m = rng.random(n) > 0.1
+    return v, m
+
+
+def test_unsupported_mask_and_update_warpfield_match_jax():
+    """Sparse nodes on a sphere leave unsupported regions: the unsupported
+    mask is equal, and node insertion gives the same node count, the same
+    new node positions (1e-6 m) and their DQB seeds (1e-5)."""
+    rng = np.random.default_rng(14)
+    verts, vmask = _sphere_canonical(rng)
+    D, n0 = 256, 12
+    pos = np.zeros((D, 3), np.float32)
+    pos[:n0] = verts[::250][:n0]
+    _, dqs, _, _ = _nodes(rng, D, 0, rot=0.1, trans=0.01)
+    w = np.full(D, 0.1, np.float32)
+    mask = np.arange(D) < n0
+    mult = rng.integers(1, 7, verts.shape[0]).astype(np.float32)
+    jwf, twf = _jwf(pos, dqs, w, mask), _twf(pos, dqs, w, mask)
+
+    ju = np.asarray(jfield.unsupported_mask(jwf, jnp.asarray(verts),
+                                            jnp.asarray(vmask)))
+    tu = tfield.unsupported_mask(twf, _t(verts), _t(vmask)).numpy()
+    assert 100 < ju.sum() < vmask.sum()
+    np.testing.assert_array_equal(tu, ju)
+
+    jnew = jfield.update_warpfield(jwf, jnp.asarray(verts), jnp.asarray(vmask),
+                                   0.05, 0.05, 64,
+                                   vert_weights=jnp.asarray(mult))
+    tnew = tfield.update_warpfield(twf, _t(verts), _t(vmask), 0.05, 0.05, 64,
+                                   vert_weights=_t(mult))
+    n = int(jnew.count)
+    assert n > n0 and int(tnew.count) == n
+    np.testing.assert_array_equal(tnew.mask.numpy(), np.asarray(jnew.mask))
+    np.testing.assert_allclose(tnew.pos.numpy(), np.asarray(jnew.pos),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tnew.dqs.numpy(), np.asarray(jnew.dqs),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(tnew.w.numpy(), np.asarray(jnew.w))
+
+
+@pytest.fixture
+def dev():
+    """The CUDA device; tests that take it are marked `cuda` and skip
+    without a card (run them on the GPU with `-m cuda`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda on the GPU machine")
+    return torch.device("cuda")
+
+
+def _masked_nodes(rng, D, n_valid, dev):
+    pos = torch.as_tensor(rng.uniform(0, 1, (D, 3)), dtype=torch.float32,
+                          device=dev)
+    mask = torch.zeros(D, dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(rng.choice(D, n_valid, replace=False),
+                         device=dev)] = True
+    return pos, mask
+
+
+def _edge_queries(rng, Q, dev):
+    q = rng.uniform(-0.2, 1.2, (Q, 3)).astype(np.float32)
+    q[:3] = 3e38  # BIG queries: every distance is inf
+    q[3] = np.nan  # NaN ranks as inf
+    return torch.as_tensor(q, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,D,n_valid", [(1, 37, 30), (3, 129, 129),
+                                         (8, 37, 5), (8, 1000, 900)])
+def test_knn_gather_kernel_equals_plain(dev, k, D, n_valid):
+    """Selections, distances and features bit for bit, including fewer
+    valid nodes than k and all-inf rows."""
+    rng = np.random.default_rng(D + k)
+    pos, mask = _masked_nodes(rng, D, n_valid, dev)
+    table = torch.as_tensor(rng.normal(size=(D, 13)), dtype=torch.float32,
+                            device=dev)
+    q = _edge_queries(rng, 333, dev)
+    got = knn_cuda.knn_gather(q, pos, k, table, mask)
+    want = knn_cuda.knn_gather_plain(q, pos, k, table, mask)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,n_valid", [(37, 5), (256, 200)])
+def test_warp_kernel_equals_plain(dev, D, n_valid):
+    """Warped points, normals, blended DQ and ratio within 1e-6."""
+    rng = np.random.default_rng(D)
+    pos, mask = _masked_nodes(rng, D, n_valid, dev)
+    t = rng.normal(0, 0.02, (D, 3))
+    dqs = np.zeros((D, 8))
+    dqs[:, 0] = 1.0
+    dqs[:, 5:] = 0.5 * t
+    dqs = torch.as_tensor(dqs, dtype=torch.float32, device=dev)
+    w = torch.full((D,), 0.3, device=dev)
+    q = torch.as_tensor(rng.uniform(0, 1, (517, 3)), dtype=torch.float32,
+                        device=dev)
+    n = torch.as_tensor(rng.normal(size=(517, 3)), dtype=torch.float32,
+                        device=dev)
+    got = warp_cuda.warp_fused(q, n, pos, dqs, w, mask)
+    want = warp_cuda.warp_fused_plain(q, n, pos, dqs, w, mask)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,F", [(384, 1), (1024, 22)])
+def test_window_sweep_kernel_equals_plain(dev, W, F):
+    """Rows and certificates bit for bit, with a ragged last sub-tile,
+    masked points, BIG queries and a window holding no valid point."""
+    rng = np.random.default_rng(W)
+    P, Q = 3000, 4096
+    pts = rng.uniform(-1, 1, (P, 3)).astype(np.float32)
+    pts[rng.random(P) < 0.05] = 3e38
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    pts[:W] = 3e38  # the lowest window holds no valid point
+    qs = rng.uniform(-1, 1, (Q, 3)).astype(np.float32)
+    qs = qs[np.argsort(qs[:, 0], kind="stable")]
+    qs[rng.random(Q) < 0.05] = 3e38
+    qsP, psP, lo_el, pre, suf, W = tknn.window_placement(
+        torch.as_tensor(qs, device=dev), torch.as_tensor(pts, device=dev), W)
+    lo_el[0] = 0  # force the empty window onto the first tile
+    pay = torch.as_tensor(rng.normal(size=(psP.shape[0], F)),
+                          dtype=torch.float32, device=dev)
+    got = corr_cuda.nn1_window_sweep(qsP, psP, lo_el, pre, suf, 2048, W, pay)
+    want = corr_cuda.nn1_window_sweep_plain(qsP, psP, lo_el, pre, suf, 2048,
+                                            W, pay)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
