@@ -1,15 +1,16 @@
 """dynfu_tpu_torch — the PyTorch / CUDA port of dynfu_tpu for NVIDIA Hopper.
 
 The same DynamicFusion engine as dynfu_tpu, with the same module layout, in
-eager PyTorch. Every Pallas kernel on the parity frame loop is a CUDA C++
-kernel written for sm_90a (csrc/), built at first use by
+eager PyTorch. Every Pallas kernel on the parity and fusion frame loops is a
+CUDA C++ kernel written for sm_90a (csrc/), built at first use by
 `dynfu_tpu_torch.kernels` and launched through its wrapper:
 
 * marching-cubes triangle pack     -> mesh.mc_cuda.pack_triangles
 * k-NN with node-feature fetch     -> ops.knn_cuda.knn_gather
 * windowed 1-NN correspondence     -> ops.corr_cuda.nn1_window_sweep
-* fused warp (k-NN + DQB blend)    -> ops.warp_cuda.warp_fused
+* fused warp (k-NN + DQB or DLB)   -> ops.warp_cuda.warp_fused
 * GN data-term Gram                -> solver.gram_cuda.data_normal
+* SE(3) monomial Grams             -> solver.gram_cuda.monomial_grams
 
 A wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; nothing falls back from one to the other.

@@ -1,21 +1,30 @@
-// Fused warp: k-NN against the nodes, the reference's DQB blend, and the
-// transform of each point and "normal", plus the unsupported ratio.
+// Fused warp: k-NN against the nodes, a dual-quaternion blend, and the
+// transform of each point and normal, plus the unsupported ratio.
 //
-// Replaces warp_fused_tpu with blend="dqb" (dynfu_tpu/ops/warp_pallas.py:171,
-// body _warp_kernel :60). The TPU kernel runs k argmin rounds over a (D, TQ)
-// VMEM block and fetches node state by one-hot matmuls. Here one thread per
-// query selects its k nodes with the routine shared with knn.cu (positions
-// staged in shared memory), reads each selected node's dq, dg_w and mask
-// directly (L2-resident: D*13 floats), and runs the blend in registers.
-// Bound: D*Q shared-memory distance evaluations; the output is 15 floats
-// per query and no intermediate reaches device memory.
+// Replaces warp_fused_tpu (dynfu_tpu/ops/warp_pallas.py:171, body
+// _warp_kernel :60), both of its blends. The TPU kernel runs k argmin
+// rounds over a (D, TQ) VMEM block and fetches node state by one-hot
+// matmuls. Here one thread per query selects its k nodes with the routine
+// shared with knn.cu (positions staged in shared memory), reads each
+// selected node's dq, dg_w and mask directly (L2-resident: D*13 floats),
+// and blends in registers. Bound: D*Q shared-memory distance evaluations
+// (each ~8 flops); the output is 15 floats per query and no intermediate
+// reaches device memory. Offsets are 64-bit: the fusion band warps up to
+// 2^19 queries in one launch.
 //
-// Reference quirks kept (warp_pallas.py:98-106,121-126,154-158): invalid
-// slots multiply by the identity, node weights scale the dual part only,
-// the product is sequential in nearest-first order, the real part alone is
-// normalised, and the "normal" gets the full transform, translation
-// included. The point transform is dq_transform_point's formula, in the
-// plain version's operation order (ops/warp_cuda.py).
+// blend = 0, "dqb" — the reference's quirks (warp_pallas.py:98-106,121-126,
+// 154-158): invalid slots multiply by the identity, node weights scale the
+// dual part only, the product is sequential in nearest-first order, the
+// real part alone is normalised, and the "normal" gets the full transform,
+// translation included.
+// blend = 1, "dlb" — Kavan's linear blend (warp_pallas.py:107-113,127-136,
+// 159-162): each dq sign-aligned to the nearest node's real part, weighted
+// by its Gaussian weight (0 for invalid slots) and summed with the weights'
+// sum; the identity where that sum is <= 1e-12; the whole dq divided by
+// |real|; normals rotated only.
+// The point transform is dq_transform_point's formula, the normal rotation
+// dq_rotate_vector's, in the plain version's operation order
+// (ops/warp_cuda.py).
 #include "topk.cuh"
 
 struct Q4 {
@@ -48,7 +57,15 @@ __device__ __forceinline__ float3 transform(Q4 r, Q4 d, float3 v) {
       v.z + 2.0f * c2.z + 2.0f * (r.w * dv.z - d.w * rv.z + c3.z));
 }
 
-template <int K>
+__device__ __forceinline__ Q4 qconj(Q4 a) { return {a.w, -a.x, -a.y, -a.z}; }
+
+// vec((r * (0, v)) * conj(r))
+__device__ __forceinline__ float3 rotate(Q4 r, float3 v) {
+  Q4 o = qmul(qmul(r, Q4{0.f, v.x, v.y, v.z}), qconj(r));
+  return make_float3(o.x, o.y, o.z);
+}
+
+template <int K, bool DLB>
 __global__ void warp_fused_kernel(const float* __restrict__ q,
                                   const float* __restrict__ nrm,
                                   const float* __restrict__ pos,
@@ -61,14 +78,17 @@ __global__ void warp_fused_kernel(const float* __restrict__ q,
                                   float* __restrict__ ratio_out) {
   extern __shared__ float4 s_nodes[];
   stage_nodes(s_nodes, pos, mask, D);
-  int qi = blockIdx.x * blockDim.x + threadIdx.x;
+  long long qi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (qi >= Q) return;
   float3 v = make_float3(q[3 * qi], q[3 * qi + 1], q[3 * qi + 2]);
   TopK<K> top;
   scan_nodes<K>(top, s_nodes, D, v.x, v.y, v.z);
 
   Q4 ar = {1.f, 0.f, 0.f, 0.f}, ad = {0.f, 0.f, 0.f, 0.f};
+  Q4 ref = {0.f, 0.f, 0.f, 0.f};
+  float wsum = 0.f;
   float ratio = CUDART_INF_F;
+  if (DLB) ar.w = 0.f;
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     int j = top.i[r];
@@ -78,21 +98,45 @@ __global__ void warp_fused_kernel(const float* __restrict__ q,
     float wt = expf(-m / (2.0f * dg_w * dg_w));
     ratio = fminf(ratio, valid ? sqrtf(m) / dg_w : CUDART_INF_F);
     const float* n = dqs + 8 * (long long)j;
-    Q4 sr = valid ? Q4{n[0], n[1], n[2], n[3]} : Q4{1.f, 0.f, 0.f, 0.f};
-    Q4 sd = valid ? Q4{n[4] * wt, n[5] * wt, n[6] * wt, n[7] * wt}
-                  : Q4{0.f, 0.f, 0.f, 0.f};
-    Q4 nr = qmul(ar, sr);
-    Q4 d1 = qmul(ar, sd), d2 = qmul(ad, sr);
-    ad = {d1.w + d2.w, d1.x + d2.x, d1.y + d2.y, d1.z + d2.z};
-    ar = nr;
+    if (DLB) {
+      Q4 nr = {n[0], n[1], n[2], n[3]};
+      if (r == 0) ref = nr;  // the nearest node, valid or not
+      float dot = nr.w * ref.w + nr.x * ref.x + nr.y * ref.y + nr.z * ref.z;
+      float ws = (valid ? wt : 0.f) * (dot < 0.f ? -1.f : 1.f);
+      ar = {ar.w + ws * n[0], ar.x + ws * n[1], ar.y + ws * n[2],
+            ar.z + ws * n[3]};
+      ad = {ad.w + ws * n[4], ad.x + ws * n[5], ad.y + ws * n[6],
+            ad.z + ws * n[7]};
+      wsum = wsum + (valid ? wt : 0.f);
+    } else {
+      Q4 sr = valid ? Q4{n[0], n[1], n[2], n[3]} : Q4{1.f, 0.f, 0.f, 0.f};
+      Q4 sd = valid ? Q4{n[4] * wt, n[5] * wt, n[6] * wt, n[7] * wt}
+                    : Q4{0.f, 0.f, 0.f, 0.f};
+      Q4 nr = qmul(ar, sr);
+      Q4 d1 = qmul(ar, sd), d2 = qmul(ad, sr);
+      ad = {d1.w + d2.w, d1.x + d2.x, d1.y + d2.y, d1.z + d2.z};
+      ar = nr;
+    }
   }
-  float mag = fmaxf(
-      sqrtf(ar.w * ar.w + ar.x * ar.x + ar.y * ar.y + ar.z * ar.z), 1e-30f);
-  Q4 rn = {ar.w / mag, ar.x / mag, ar.y / mag, ar.z / mag};
+  Q4 rn;
+  if (DLB) {
+    if (!(wsum > 1e-12f)) {  // no support: the identity
+      ar = {1.f, 0.f, 0.f, 0.f};
+      ad = {0.f, 0.f, 0.f, 0.f};
+    }
+    float mag = sqrtf(
+        fmaxf(ar.w * ar.w + ar.x * ar.x + ar.y * ar.y + ar.z * ar.z, 1e-30f));
+    rn = {ar.w / mag, ar.x / mag, ar.y / mag, ar.z / mag};
+    ad = {ad.w / mag, ad.x / mag, ad.y / mag, ad.z / mag};
+  } else {
+    float mag = fmaxf(
+        sqrtf(ar.w * ar.w + ar.x * ar.x + ar.y * ar.y + ar.z * ar.z), 1e-30f);
+    rn = {ar.w / mag, ar.x / mag, ar.y / mag, ar.z / mag};
+  }
 
   float3 pv = transform(rn, ad, v);
   float3 n3 = make_float3(nrm[3 * qi], nrm[3 * qi + 1], nrm[3 * qi + 2]);
-  float3 pn = transform(rn, ad, n3);
+  float3 pn = DLB ? rotate(rn, n3) : transform(rn, ad, n3);
   warped[3 * qi] = pv.x;
   warped[3 * qi + 1] = pv.y;
   warped[3 * qi + 2] = pv.z;
@@ -108,19 +152,29 @@ __global__ void warp_fused_kernel(const float* __restrict__ q,
 DYNFU_API int dynfu_warp_fused(const float* queries, const float* normals,
                                const float* pos, const float* dqs,
                                const float* w, const unsigned char* mask,
-                               int Q, int D, int k, float* warped,
+                               int Q, int D, int k, int blend, float* warped,
                                float* wnormals, float* bdq, float* ratio,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int T = 128;
   size_t smem = (size_t)D * sizeof(float4);
+  if (blend != 0 && blend != 1) return (int)cudaErrorInvalidValue;
   DYNFU_DISPATCH_K(k, {
-    cudaFuncSetAttribute(warp_fused_kernel<KK>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    warp_fused_kernel<KK><<<dynfu_blocks(Q, T), T, smem, s>>>(
-        queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
-        ratio);
+    if (blend == 1) {
+      cudaFuncSetAttribute(warp_fused_kernel<KK, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+      warp_fused_kernel<KK, true><<<dynfu_blocks(Q, T), T, smem, s>>>(
+          queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
+          ratio);
+    } else {
+      cudaFuncSetAttribute(warp_fused_kernel<KK, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+      warp_fused_kernel<KK, false><<<dynfu_blocks(Q, T), T, smem, s>>>(
+          queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
+          ratio);
+    }
   });
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,9 @@
 Port of dynfu_tpu/engine/params.py: the same fields with the same defaults,
 so that a JAX engine's configuration converts field by field
 (utils/convert.py). The reasons behind each default and each capacity preset
-are documented at the source; the fusion-mode fields are carried for that
-conversion although this package does not run fusion mode yet.
+are documented at the source. Some fields serve paths not ported yet (the
+rigid ICP settings, fusion_camera_tracking); they are carried for that
+conversion, and the engine raises where one would be needed.
 """
 
 from __future__ import annotations

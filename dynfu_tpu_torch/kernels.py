@@ -2,11 +2,12 @@
 
 All csrc/*.cu files compile with nvcc into ONE shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so the build takes
-seconds). The build runs at the first launch in a process, from the sources
-in this checkout only, into <repo>/build/kernels/; the library's name carries
-a hash of the sources and flags, so an edited source is never served by a
-stale build. Nothing here runs at import: the CPU tests import every module
-on machines without nvcc.
+seconds): one nvcc per source, all started together, then one link. The
+build runs at the first launch in a process, from the sources in this
+checkout only, into <repo>/build/kernels/; the library's name carries a hash
+of the sources and flags, so an edited source is never served by a stale
+build. Nothing here runs at import: the CPU tests import every module on
+machines without nvcc.
 
 Every C entry point enqueues its kernels on the stream it is given and
 returns cudaGetLastError(); `check` turns a nonzero code into an exception.
@@ -41,8 +42,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dynfu_pack_triangles": [_P, _P, _P, _I, _I, _P, _P],
     "dynfu_knn_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "dynfu_warp_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+    "dynfu_warp_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
+    "dynfu_monomial_grams": [_P, _P, _P, _P, _P, _I, _I, _I,
+                             _P, _P, _P, _P],
     "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
@@ -69,22 +72,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdynfu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise on the first failure."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    failed = []
+    for c, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the shared library (if not built yet)."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, cmds = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            cmds.append([nvcc, *compile_flags, "-I", str(CSRC), "-c",
+                         str(src), "-o", obj])
+        _run(cmds)
+        tmp = os.path.join(tmpdir, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half
     return so
 
 

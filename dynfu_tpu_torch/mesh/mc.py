@@ -7,19 +7,22 @@ marching_cubes.cu). Semantics kept:
   corners are not all on one side of the isosurface (inside = tsdf < 0);
 * cells are visited in x-major order with z fastest — the correspondence's
   x-window depends on this emission order;
-* vertices sit on cell edges between voxel CENTRES (+0.5 voxel, the
-  reference's getNodeCoo — half a voxel off its integrator's corner
-  samples, a parity quirk), interpolated by t = (0 - f0) / (f1 - f0 + 1e-15);
+* `convention="center"` puts corner i at (i + 0.5) voxels (the reference's
+  getNodeCoo, half a voxel off its integrator's corner samples: the parity
+  quirk); `convention="corner"` at i voxels, consistent with the integrator
+  (fusion mode needs it);
+* vertices are interpolated by t = (0 - f0) / (f1 - f0 + 1e-15);
 * output is a flat vertex stream, 3 per triangle, in volume-frame meters,
   in a fixed-capacity buffer with a count.
 
-Compaction is one dense `torch.nonzero` over the cell field, capped at
-`max_voxels`; `n_dropped` counts occupied cells beyond the cap. (The source
-compacts 128^3 and larger volumes through bit-packed columns with a
-per-column budget; its order equals the dense scan whenever nothing
-overflows, and its n_dropped also counts per-column budget overflows, which
-this port does not have.) The triangle rows are packed into the stream by
-the CUDA kernel in mesh/mc_cuda.py.
+Compaction follows the source's two branches exactly, so that the captured
+cells, their order and `n_dropped` match it under overflow too: below 2^18
+cells, the first `max_voxels` occupied cells; from 2^18 cells on, the
+column-budget rule of ops/compaction.extract_columns (the first K cells of
+each (x, y) column, at most max(max_voxels // 4, 2^15) active columns, at
+most `max_voxels` cells). `n_dropped` counts occupied cells not meshed. The
+triangle rows are packed into the stream by the CUDA kernel in
+mesh/mc_cuda.py.
 """
 
 from __future__ import annotations
@@ -28,16 +31,20 @@ import numpy as np
 import torch
 
 from dynfu_tpu_torch.mesh import mc_cuda, tables
+from dynfu_tpu_torch.ops import compaction
 from dynfu_tpu_torch.volume.tsdf import TsdfConfig, TsdfVolume
 
 
 def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
-                   max_voxels: int = 1 << 17, max_verts: int = 3 * 600_000):
+                   max_voxels: int = 1 << 17, max_verts: int = 3 * 600_000,
+                   convention: str = "center", col_budget: int = 0):
     """Extract the zero isosurface as a triangle soup.
 
     Returns (vertices (max_verts, 3) float32 volume-frame meters,
              n_verts () int32, n_dropped () int32 occupied cells not meshed).
     """
+    if convention not in ("center", "corner"):
+        raise ValueError(f"unknown convention {convention!r}")
     X, Y, Z = config.dims
     dev = vol.tsdf.device
     F, Wt = vol.tsdf, vol.weight
@@ -57,12 +64,21 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
             all_w = all_w & ok
             all_in = all_in & inside
             all_out = all_out & ~inside
-    occ = (all_w & ~all_in & ~all_out).reshape(-1)
-    occ_idx = torch.nonzero(occ).reshape(-1)[:max_voxels].to(torch.int64)
-    n_occ = torch.sum(occ, dtype=torch.int32)
-    vox_idx = torch.full((max_voxels,), n_cells, dtype=torch.int64,
-                         device=dev)
-    vox_idx[:occ_idx.shape[0]] = occ_idx
+    occ = all_w & ~all_in & ~all_out
+    if n_cells < (1 << 18):
+        n_occ = torch.sum(occ, dtype=torch.int32)
+        vox_idx = compaction.rank_select(occ.reshape(-1), max_voxels, n_cells)
+    else:
+        # the source's column-budget branch: ~2 trunc / voxel cells per
+        # surface crossing, two crossings plus margin (mc.py:164-166)
+        K = col_budget or min(64, 4 + 4 * max(1, int(np.ceil(
+            config.trunc_dist / config.voxel_size[2]))))
+        K = min(K, Z - 1)
+        ncols = (X - 1) * (Y - 1)
+        vox_idx, n_occ, _ = compaction.extract_columns(
+            occ.reshape(ncols, Z - 1), per_column=K,
+            max_cols=min(ncols, max(max_voxels // 4, 1 << 15)),
+            max_out=max_voxels, row_stride=Z - 1, fill=n_cells)
     vox_valid = vox_idx < n_cells
     n_dropped = n_occ - torch.sum(vox_valid, dtype=torch.int32)
 
@@ -91,7 +107,8 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
                          device=dev)
     base = torch.stack([vx, vy, vz], dim=-1).to(torch.float32)  # (M, 3)
     offs_t = torch.as_tensor(offs, dtype=torch.float32, device=dev)
-    corner_pos = (base[:, None, :] + offs_t[None] + 0.5) * vs  # (M, 8, 3)
+    shift = 0.5 if convention == "center" else 0.0
+    corner_pos = (base[:, None, :] + offs_t[None] + shift) * vs  # (M, 8, 3)
 
     ec = torch.as_tensor(tables.EDGE_CORNERS, dtype=torch.int64, device=dev)
     p0, p1 = corner_pos[:, ec[:, 0]], corner_pos[:, ec[:, 1]]

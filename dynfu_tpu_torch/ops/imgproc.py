@@ -1,10 +1,11 @@
-"""Depth-image preprocessing: the subset the parity frame loop runs.
+"""Depth-image preprocessing: the subset the parity and fusion frames run.
 
-Port of compute_dists, bilateral_filter and truncate_depth from
-dynfu_tpu/ops/imgproc.py (the reference's imgproc.cu kernels), with the same
-quirks: the bilateral window's exclusive upper bound (the last row and column
-never contribute), round-half-to-even of the weighted mean, and dists stored
-in float16 — the narrowing is part of the semantics (imgproc.cu:248-262).
+Port of compute_dists, bilateral_filter, truncate_depth and
+compute_points_normals from dynfu_tpu/ops/imgproc.py (the reference's
+imgproc.cu kernels), with the same quirks: the bilateral window's exclusive
+upper bound (the last row and column never contribute), round-half-to-even
+of the weighted mean, and dists stored in float16 — the narrowing is part
+of the semantics (imgproc.cu:248-262).
 """
 
 from __future__ import annotations
@@ -73,13 +74,43 @@ def compute_dists(depth_mm: torch.Tensor, intr: Intr) -> torch.Tensor:
     dev = depth_mm.device
     x = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
     y = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
-    xl = (x - intr.cx) / _f32(intr.fx, dev)
-    yl = (y - intr.cy) / _f32(intr.fy, dev)
+    xl = (x - intr.cx) / f32_scalar(intr.fx, dev)
+    yl = (y - intr.cy) / f32_scalar(intr.fy, dev)
     lam = sqrt_rn(xl * xl + yl * yl + 1.0)
     return (depth_mm.to(torch.float32) * lam * 0.001).to(torch.float16)
 
 
-def _f32(v: float, device) -> torch.Tensor:
+def compute_points_normals(depth_mm: torch.Tensor, intr: Intr):
+    """Point and normal maps from right/down finite differences
+    (imgproc.cu:186-215): normal = -normalize((v01 - v00) x (v10 - v00));
+    valid iff x < W-1, y < H-1 and the three depths are nonzero. Returns
+    (points (H, W, 3), normals (H, W, 3)), NaN at invalid pixels."""
+    H, W = depth_mm.shape
+    dev = depth_mm.device
+    fx, fy = f32_scalar(intr.fx, dev), f32_scalar(intr.fy, dev)
+    z = depth_mm.to(torch.float32) * 0.001
+    x = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    y = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    z01 = _shift2d(z, 0, 1, 0.0)
+    z10 = _shift2d(z, 1, 0, 0.0)
+    v00 = torch.stack([z * (x - intr.cx) / fx, z * (y - intr.cy) / fy, z], -1)
+    v01 = torch.stack([z01 * (x + 1 - intr.cx) / fx,
+                       z01 * (y - intr.cy) / fy, z01], -1)
+    v10 = torch.stack([z10 * (x - intr.cx) / fx,
+                       z10 * (y + 1 - intr.cy) / fy, z10], -1)
+    a, b = v01 - v00, v10 - v00
+    c = torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                     a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                     a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+    n = -(c / torch.linalg.vector_norm(c, dim=-1, keepdim=True))
+    interior = ((torch.arange(W, device=dev)[None, :] < W - 1)
+                & (torch.arange(H, device=dev)[:, None] < H - 1))
+    valid = (interior & (z * z01 * z10 != 0))[..., None]
+    return (torch.where(valid, v00, torch.nan),
+            torch.where(valid, n, torch.nan))
+
+
+def f32_scalar(v: float, device) -> torch.Tensor:
     """A float32 scalar TENSOR: CUDA divides by a Python-scalar divisor as a
     multiply by its reciprocal, which rounds differently from a division."""
     return torch.tensor(v, dtype=torch.float32, device=device)

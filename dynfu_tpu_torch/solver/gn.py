@@ -12,8 +12,9 @@ with the reference schedule (24 outer / 16 nonlinear / 256 linear
 iterations, earlyOut). The data-term Gram is the CUDA kernel in
 solver/gram_cuda.py.
 
-The CG loop checks its tolerance on the host between trips of 8 steps, as
-the source's while_loop does; every other quantity stays on the device.
+The CG loop (`pcg`, shared with the SE(3) solver) checks its tolerance on
+the host between trips of 8 steps, as the source's while_loop does; every
+other quantity stays on the device.
 """
 
 from __future__ import annotations
@@ -85,13 +86,18 @@ def _matvec(M, q):
     return torch.sum(M[:, :, None] * q[None, :, :], dim=1)
 
 
-def _pcg(A, b, t_init, linear_iter: int, cg_tol: float):
-    """Jacobi-preconditioned CG: (t, iterations)."""
+def pcg(A, b, x0, linear_iter: int, cg_tol: float, matvec=_matvec):
+    """Jacobi-preconditioned CG on A x = b, for b of shape (n,) or (n, c)
+    (each column a right-hand side sharing one step size): (x,
+    iterations). The tolerance is checked on the host once per trip of 8
+    steps, as the source's while_loop does; inside a trip the `active` mask
+    freezes a converged state, so the iteration count equals the
+    source's."""
     diag = torch.diagonal(A)
-    inv_diag = torch.where(diag > 0, 1.0 / torch.clamp_min(diag, 1e-30),
-                           0.0)[:, None]
-    t = t_init
-    r = b - _matvec(A, t)
+    inv_diag = torch.where(diag > 0, 1.0 / torch.clamp_min(diag, 1e-30), 0.0)
+    inv_diag = inv_diag.reshape(b.shape[:1] + (1,) * (b.dim() - 1))
+    x = x0
+    r = b - matvec(A, x)
     z = inv_diag * r
     p = z
     rz = torch.sum(r * z)
@@ -99,40 +105,45 @@ def _pcg(A, b, t_init, linear_iter: int, cg_tol: float):
     while bool((i < linear_iter) & (rz > cg_tol)):
         for _ in range(_UNROLL):
             active = rz > cg_tol  # freezes converged state inside the trip
-            ap = _matvec(A, p)
+            ap = matvec(A, p)
             denom = torch.sum(p * ap)
             alpha = torch.where(denom > 0, rz / torch.clamp_min(denom, 1e-30),
                                 0.0)
-            t2 = t + alpha * p
+            x2 = x + alpha * p
             r2 = r - alpha * ap
             z2 = inv_diag * r2
             rz_new = torch.sum(r2 * z2)
             beta = torch.where(rz > 0, rz_new / torch.clamp_min(rz, 1e-30),
                                0.0)
             p2 = z2 + beta * p
-            t = torch.where(active, t2, t)
+            x = torch.where(active, x2, x)
             r = torch.where(active, r2, r)
             z = torch.where(active, z2, z)
             p = torch.where(active, p2, p)
             rz = torch.where(active, rz_new, rz)
             i = i + active.to(torch.int32)
-    return t, i
+    return x, i
 
 
 def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
-          graph_w=None, tukey_offset: float = 4.652,
+          graph_w=None, graph=None, tukey_offset: float = 4.652,
           psi_data: float = 0.01, lambda_reg: float = 200.0,
           psi_reg: float = 1e-4, linear_iter: int = 256,
           cg_tol: float = 1e-12, knn_k: int = wfield.KNN,
           nonlinear_iter: int = 16, num_iter: int = 24,
-          early_out: bool = True):
+          early_out: bool = True, min_update: float = 0.0,
+          max_update: float = 0.0):
     """One warp solve: (updated WarpField, SolveStats).
 
     graph_w = (data_idx, data_w, warped) hands in prefetched data-graph rows
-    (the engine fetches them with the correspondence); otherwise the k-NN
-    and the DQB warp of `canonical_v` run here. With early_out the outer loop
-    stops after its first iteration (the reference's only mode); without,
-    each outer iteration re-weights from the current estimate."""
+    (the parity engine fetches them with the correspondence); graph =
+    (data_idx, n_pos, n_w, n_valid, warped) the neighbour pass the fusion
+    frame already ran; otherwise the k-NN and the DQB warp of `canonical_v`
+    run here. With early_out the outer loop stops after its first iteration
+    (the reference's only mode); without, each outer iteration re-weights
+    from the current estimate. Fusion mode gates the result: min_update
+    soft-thresholds each node's step (|t| <= min_update -> 0, larger steps
+    shrink by it), max_update rejects a step longer than it."""
     dev = wf.pos.device
     canonical_v = torch.as_tensor(canonical_v, dtype=torch.float32,
                                   device=dev)
@@ -145,11 +156,14 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
         data_idx, data_w, warped = graph_w
         data_idx = data_idx.to(torch.int32)
     else:
-        data_idx, _, n_pos, n_dq, n_w, n_valid = wfield.neighbor_features(
-            wf, canonical_v, knn_k)
-        blend = wfield._dqb_from_features(canonical_v, n_pos, n_dq, n_w,
-                                          n_valid)
-        warped = dq.dq_transform_point(blend, canonical_v)
+        if graph is None:
+            data_idx, _, n_pos, n_dq, n_w, n_valid = wfield.neighbor_features(
+                wf, canonical_v, knn_k)
+            blend = wfield._dqb_from_features(canonical_v, n_pos, n_dq, n_w,
+                                              n_valid)
+            warped = dq.dq_transform_point(blend, canonical_v)
+        else:
+            data_idx, n_pos, n_w, n_valid, warped = graph
         data_w = wfield.transformation_weights(n_pos, n_w,
                                                canonical_v[:, None, :])
         data_w = torch.where(n_valid, data_w, 0.0)
@@ -174,8 +188,8 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
         # warm-started restart sees the same system
         t = t_init
         for _ in range(max(nonlinear_iter - 1, 0)):
-            t, _ = _pcg(A, b, t, linear_iter, cg_tol)
-        t, iters = _pcg(A, b, t, linear_iter, cg_tol)
+            t, _ = pcg(A, b, t, linear_iter, cg_tol)
+        t, iters = pcg(A, b, t, linear_iter, cg_tol)
         c0 = torch.sum(s2_k[:, None] * delta * delta)
         costt = c0 - 2.0 * torch.sum(t * b) + torch.sum(t * _matvec(A, t))
         return t, iters, c0, costt
@@ -200,4 +214,11 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
 
     stats = SolveStats(initial_cost, costt, iters, mean_huber)
     t = torch.where(wf.mask[:, None], t, 0.0)
+    if min_update > 0.0:
+        norm = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+        t = t * torch.clamp_min(
+            1.0 - min_update / torch.clamp_min(norm, 1e-12), 0.0)
+    if max_update > 0.0:
+        norm = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+        t = torch.where(norm <= max_update, t, 0.0)
     return wfield.compose_translations(wf, t), stats

@@ -1,9 +1,12 @@
-"""GN data-term Gram assembly: CUDA wrapper and plain version.
+"""Data-term Gram assembly: CUDA wrappers and plain versions.
 
-Replaces data_normal_tpu (dynfu_tpu/solver/gram_pallas.py:85). Kernel
-source: csrc/gram.cu. Both sum in IEEE float32 (the TPU kernel's 3-pass
-bf16 split is a TPU device, not carried over); the kernel's atomics sum in
-a varying order, so the two agree to float32 roundoff, not bit for bit.
+`data_normal` replaces data_normal_tpu (dynfu_tpu/solver/gram_pallas.py:85;
+kernel csrc/gram.cu), the translation solve's A and b. `monomial_grams`
+replaces monomial_grams_tpu (gram_pallas.py:184; kernel csrc/mono_gram.cu),
+the SE(3) solve's ten monomial Grams and two rhs. All sum in IEEE float32
+(the TPU kernels' 3-pass bf16 split is a TPU device, not carried over); the
+kernels' atomics sum in a varying order, so each kernel and its plain
+version agree to float32 roundoff, not bit for bit.
 """
 
 from __future__ import annotations
@@ -58,3 +61,75 @@ def data_normal(data_idx: torch.Tensor, data_w: torch.Tensor,
 
 
 data_normal.launches = 0
+
+
+def monomials(y):
+    """(10, N): [1, yx, yy, yz, yx^2, yx yy, yx yz, yy^2, yy yz, yz^2]."""
+    yx, yy, yz = y.unbind(-1)
+    return torch.stack([torch.ones_like(yx), yx, yy, yz, yx * yx, yx * yy,
+                        yx * yz, yy * yy, yy * yz, yz * yz])  # (10, N)
+
+
+def monomial_grams_plain(data_idx, data_w, s2, y, delta, D: int):
+    kernels.count_plain(monomial_grams_plain, data_idx)
+    N, K = data_idx.shape
+    dev = data_w.device
+    idx = data_idx.to(torch.int64)
+    ok = (idx >= 0) & (idx < D)
+    rs = torch.sqrt(torch.clamp_min(s2, 0.0))
+    ws = torch.where(ok, rs[:, None] * data_w, 0.0)  # (N, K)
+    idx = torch.where(ok, idx, 0)
+    pair = ws[:, :, None] * ws[:, None, :]  # (N, K, K), zero off the rows
+    terms = pair[None] * monomials(y)[:, :, None, None]  # (10, N, K, K)
+    flat = (idx[:, :, None] * D + idx[:, None, :]).reshape(-1)
+    flat = (torch.arange(10, device=dev)[:, None] * (D * D)
+            + flat[None, :]).reshape(-1)
+    B = torch.zeros(10 * D * D, dtype=torch.float32, device=dev)
+    B.index_add_(0, flat, terms.reshape(-1))
+    dx, dy, dz = delta.unbind(-1)
+    yx, yy, yz = y.unbind(-1)
+    cross = torch.stack([yy * dz - yz * dy, yz * dx - yx * dz,
+                         yx * dy - yy * dx], -1)
+    rhs = []
+    for v in (delta, cross):
+        acc = torch.zeros((D, 3), dtype=torch.float32, device=dev)
+        acc.index_add_(0, idx.reshape(-1),
+                       (ws[:, :, None] * (rs[:, None] * v)[:, None, :]
+                        ).reshape(-1, 3))
+        rhs.append(acc)
+    return B.reshape(10, D, D), rhs[0], rhs[1]
+
+
+monomial_grams_plain.cuda_calls = 0
+
+
+def monomial_grams(data_idx: torch.Tensor, data_w: torch.Tensor,
+                   s2: torch.Tensor, y: torch.Tensor, delta: torch.Tensor,
+                   D: int):
+    """data_idx (N, K) int32 (indices outside [0, D) are padding), data_w
+    (N, K) f32, s2 (N,) f32 >= 0, y (N, 3) f32, delta (N, 3) f32 -> (B (10,
+    D, D), Bu (D, 3), Bw (D, 3)) f32: B[m] = (sqrt(s2) W)^T diag(mono_m(y))
+    (sqrt(s2) W) over `monomials`, Bu = W^T (s2 delta), Bw = W^T (s2 (y x
+    delta))."""
+    if not kernels.on_cuda(data_idx, "monomial_grams"):
+        return monomial_grams_plain(data_idx, data_w, s2, y, delta, D)
+    N, K = data_idx.shape
+    dev = data_idx.device
+    kernels.require(data_idx, "data_idx", torch.int32, (N, K), dev)
+    kernels.require(data_w, "data_w", torch.float32, (N, K), dev)
+    kernels.require(s2, "s2", torch.float32, (N,), dev)
+    kernels.require(y, "y", torch.float32, (N, 3), dev)
+    kernels.require(delta, "delta", torch.float32, (N, 3), dev)
+    B = torch.empty((10, D, D), dtype=torch.float32, device=dev)
+    Bu = torch.empty((D, 3), dtype=torch.float32, device=dev)
+    Bw = torch.empty((D, 3), dtype=torch.float32, device=dev)
+    lib = kernels.load()
+    kernels.check(lib.dynfu_monomial_grams(
+        data_idx.data_ptr(), data_w.data_ptr(), s2.data_ptr(), y.data_ptr(),
+        delta.data_ptr(), N, K, D, B.data_ptr(), Bu.data_ptr(),
+        Bw.data_ptr(), kernels.stream(data_idx)), "monomial_grams")
+    monomial_grams.launches += 1
+    return B, Bu, Bw
+
+
+monomial_grams.launches = 0

@@ -3,8 +3,8 @@
 The JAX engine's state arrives as plain numpy arrays and frozen dataclasses
 (this module imports neither jax nor dynfu_tpu): the dataclasses convert
 field by field by name, and the arrays become tensors on the port's device.
-The parity tests use it to start the port's frame k+1 from the JAX engine's
-state after frame k.
+The parity and fusion tests use it to start the port's frame k+1 from the
+JAX engine's state after frame k.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import torch
 
 from dynfu_tpu_torch.core.camera import Intr
 from dynfu_tpu_torch.engine.dynfusion import DynFusion, Frame
-from dynfu_tpu_torch.engine.params import DynFuParams, KinFuParams, SolverParams
+from dynfu_tpu_torch.engine.params import (DynFuParams, KinFuParams,
+                                           SolverParams)
 from dynfu_tpu_torch.volume.tsdf import TsdfVolume
 from dynfu_tpu_torch.warp.field import WarpField
 
@@ -61,20 +62,24 @@ def frame(idx, vertices, normals, mask, device) -> Frame:
 
 
 def load_engine_state(engine: DynFusion, *, vol, wf, canonical,
-                      soup_inverse, soup_mask, canonical_mult,
-                      frame_counter: int, poses) -> DynFusion:
+                      frame_counter: int, poses, soup_inverse=None,
+                      soup_mask=None, canonical_mult=None) -> DynFusion:
     """Install the JAX engine's state after a frame into `engine`.
 
     vol = (tsdf, weight, pose_r, pose_t), wf = (pos, dqs, w, mask, count),
-    canonical = (idx, vertices, normals, mask); poses a list of (R, t)."""
+    canonical = (idx, vertices, normals, mask); poses a list of (R, t). The
+    soup dedup state (soup_inverse, soup_mask, canonical_mult) exists in
+    parity mode only; a fusion-mode canonical is the unique edge vertex set
+    itself."""
     dev = engine.device
     engine.vol = volume(*vol, device=dev)
     engine.warpfield = warpfield(*wf, device=dev)
     engine.canonical = frame(*canonical, device=dev)
     engine.canonical_warped = engine.canonical
-    engine.soup_inverse = _t(soup_inverse, dev, torch.int32)
-    engine.soup_mask = _t(soup_mask, dev, torch.bool)
-    engine.canonical_mult = _t(canonical_mult, dev, torch.float32)
+    if soup_inverse is not None:
+        engine.soup_inverse = _t(soup_inverse, dev, torch.int32)
+        engine.soup_mask = _t(soup_mask, dev, torch.bool)
+        engine.canonical_mult = _t(canonical_mult, dev, torch.float32)
     engine.frame_counter = int(frame_counter)
     engine.poses = [(np.asarray(R, np.float32), np.asarray(t, np.float32))
                     for R, t in poses]

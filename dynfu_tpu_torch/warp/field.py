@@ -1,16 +1,20 @@
-"""The warp field: deformation nodes and dual-quaternion blending (DQB).
+"""The warp field: deformation nodes and dual-quaternion blending.
 
 Port of dynfu_tpu/warp/field.py (the reference's Warpfield/Node,
-warp_field.cpp), DQB only. The node set is a fixed-capacity, mask-padded
-struct of tensors; `count` stays a 0-d device tensor so that no frame waits
-on the host for it.
+warp_field.cpp), with both blends: the reference's DQB and the proper DLB
+the SE(3) fusion path warps through. The node set is a fixed-capacity,
+mask-padded struct of tensors; `count` stays a 0-d device tensor so that no
+frame waits on the host for it.
 
 Semantics kept: DQB is the sequential product of weight-scaled node DQs in
 nearest-first order, real part normalised; w(v) = exp(-|v - dg_v|^2 /
 (2 dg_w^2)); a vertex is unsupported when min_k dist_k / dg_w_k >= 1; node
 insertion voxel-downsamples unsupported vertices (5 cm leaf, centroids) and
-seeds each new node with the DQB at its position; updates compose the new
-transform on the LEFT.
+seeds each new node with the blend at its position; updates compose the new
+transform on the LEFT. DLB (Kavan et al.): normalised Gaussian weights, each
+node dq sign-aligned to the nearest node's real part, summed, the identity
+without support, the whole dq divided by |real|; points get the full
+transform, normals the rotation only.
 
 Kernels: the k-NN feature fetch is ops/knn_cuda.knn_gather, the warp and
 the unsupported ratio are ops/warp_cuda.warp_fused.
@@ -105,6 +109,29 @@ def _dqb_from_features(points, n_pos, n_dq, n_w, n_valid):
     return dq.dq_normalize(acc)
 
 
+def _dlb_from_features(points, n_pos, n_dq, n_w, n_valid):
+    """DLB given prefetched neighbour state (nearest-first order)."""
+    w = transformation_weights(n_pos, n_w, points[..., None, :])
+    w = torch.where(n_valid, w, 0.0)
+    wsum = torch.sum(w, dim=-1, keepdim=True)
+    wn = w / torch.clamp_min(wsum, 1e-12)
+    ref = n_dq[..., 0:1, :4]  # antipodal alignment to the nearest node
+    dots = torch.sum(n_dq[..., :4] * ref, dim=-1, keepdim=True)
+    sign = torch.where(dots < 0.0, -1.0, 1.0)
+    acc = torch.sum(wn[..., None] * n_dq * sign, dim=-2)
+    acc = torch.where(wsum > 1e-12, acc, dq.dq_identity(device=acc.device))
+    return dq.dq_normalize_joint(acc)
+
+
+def warp_points_normals_dlb(wf: WarpField, points, normals):
+    """warpToLive through the DLB blend: points get the full transform,
+    normals the blended rotation only (the SE(3) solver's warp)."""
+    wp, wn, _, _ = warp_cuda.warp_fused(
+        points.contiguous(), normals.contiguous(), wf.pos, wf.dqs, wf.w,
+        wf.mask, k=KNN, blend="dlb")
+    return wp, wn
+
+
 def calc_dqb(wf: WarpField, points) -> torch.Tensor:
     """Blend node transforms at query points: (Q, 8) dual quaternions."""
     _, _, n_pos, n_dq, n_w, n_valid = neighbor_features(wf, points)
@@ -163,11 +190,16 @@ def voxel_downsample(points, point_mask, leaf: float, capacity: int,
     return torch.where(out_mask[:, None], cent, 0.0), out_mask
 
 
-def insert_nodes(wf: WarpField, new_pos, new_mask, dg_w: float) -> WarpField:
-    """Masked append of new nodes with dg_se3 = DQB(pos) and the given dg_w
-    (warp_field.cpp:76-83)."""
+def insert_nodes(wf: WarpField, new_pos, new_mask, dg_w: float,
+                 blend: str = "dqb") -> WarpField:
+    """Masked append of new nodes with dg_se3 = blend(pos) and the given
+    dg_w (warp_field.cpp:76-83); blend "dqb" (reference) or "dlb"."""
     D = wf.capacity
-    new_dq = calc_dqb(wf, new_pos)
+    if blend == "dlb":
+        _, _, n_pos, n_dq, n_w, n_valid = neighbor_features(wf, new_pos)
+        new_dq = _dlb_from_features(new_pos, n_pos, n_dq, n_w, n_valid)
+    else:
+        new_dq = calc_dqb(wf, new_pos)
     offsets = torch.cumsum(new_mask.to(torch.int32), 0) - 1
     slots = wf.count + offsets
     in_range = new_mask & (slots < D)
@@ -210,14 +242,21 @@ def _unsupported_tiered(wf: WarpField, verts, vert_mask, cap: int):
 
 def update_warpfield(wf: WarpField, verts, vert_mask, epsilon: float,
                      leaf: float = 0.05, max_new: int = 1024,
-                     vert_weights=None) -> WarpField:
+                     blend: str = "dqb", vert_weights=None,
+                     aabb=None) -> WarpField:
     """Warpfield::update (warp_field.cpp:63-95): unsupported vertices ->
-    voxel-grid downsample -> new nodes with dg_w = 2 epsilon.
-    `vert_weights` carries soup multiplicities when `verts` is the
-    deduplicated canonical, so centroids stay soup-weighted."""
+    voxel-grid downsample -> new nodes with dg_w = 2 epsilon, seeded by
+    `blend`. `vert_weights` carries soup multiplicities when `verts` is the
+    deduplicated canonical, so centroids stay soup-weighted. `aabb` = (lo3,
+    hi3) drops candidates outside the box: a vertex outside the volume was
+    dragged there by a rogue warp, not new geometry."""
     n = verts.shape[0]
     cap = min(n, 4 * max_new)
     unsup = _unsupported_tiered(wf, verts, vert_mask, cap)
+    if aabb is not None:
+        lo, hi = (torch.as_tensor(a, dtype=torch.float32, device=verts.device)
+                  for a in aabb)
+        unsup = unsup & torch.all((verts >= lo) & (verts <= hi), dim=-1)
     idx, ok = knn.compact(unsup, cap)
     safe = torch.clamp_max(idx, n - 1)
     cand_pts = torch.where(ok[:, None], verts[safe], 0.0)
@@ -225,7 +264,7 @@ def update_warpfield(wf: WarpField, verts, vert_mask, epsilon: float,
         ok, vert_weights[safe], 0.0)
     cand, cand_mask = voxel_downsample(cand_pts, ok, leaf, max_new,
                                        weights=cand_w)
-    return insert_nodes(wf, cand, cand_mask, 2.0 * epsilon)
+    return insert_nodes(wf, cand, cand_mask, 2.0 * epsilon, blend=blend)
 
 
 def compose_translations(wf: WarpField, translations) -> WarpField:

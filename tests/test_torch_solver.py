@@ -144,6 +144,39 @@ def test_solve_matches_reference_fixture(name):
             atol=MAX_ERROR)
 
 
+def test_solve_with_graph_and_update_gates_matches_jax():
+    """The fusion frame's translation solve: the neighbour pass handed in as
+    graph=, then the min_update soft threshold and the max_update trust
+    region. One node pulled 3 cm (beyond max_update: rejected), the rest
+    ~2-6 mm (shrunk by min_update): node translations within 1e-5 m of
+    JAX's (float32 roundoff of a converged CG), the same cg_iters."""
+    rng = np.random.default_rng(8)
+    D, N = 12, 300
+    nodes = rng.uniform(-0.2, 0.2, (D, 3)).astype(np.float32)
+    verts = rng.uniform(-0.2, 0.2, (N, 3)).astype(np.float32)
+    live = verts + rng.normal(0, 0.002, (N, 3)).astype(np.float32) + 0.004
+    near0 = np.linalg.norm(verts - nodes[0], axis=1) < 0.08
+    live[near0] += np.float32(0.03)
+    jwf = jfield.init_warpfield(nodes, weights=0.15, capacity=16)
+    twf = tfield.init_warpfield(nodes, weights=0.15, capacity=16)
+    idx, _, n_pos, _, n_w, n_valid = jfield.neighbor_features(
+        jwf, jnp.asarray(verts), 8)
+    kw = dict(SOLVE_KW, psi_data=1.0, min_update=0.002, max_update=0.02)
+    jout, jst = jgn.solve(jwf, jnp.asarray(verts), jnp.asarray(live),
+                          graph=(idx, n_pos, n_w, n_valid, jnp.asarray(verts)),
+                          **kw)
+    tg = tuple(torch.as_tensor(np.array(a)) for a in (idx, n_pos, n_w,
+                                                       n_valid))
+    tout, tst = tgn.solve(twf, torch.as_tensor(verts), torch.as_tensor(live),
+                          graph=tg + (torch.as_tensor(verts),), **kw)
+    assert int(tst.cg_iters) == int(jst.cg_iters)
+    jdq = np.asarray(jout.dqs)
+    np.testing.assert_allclose(tout.dqs.numpy(), jdq, rtol=0, atol=1e-5)
+    t = 2 * jdq[:D, 5:8]  # pure translations: dual = (0, t / 2)
+    moved = np.linalg.norm(t, axis=1)
+    assert (moved == 0).any() and (moved > 0).any()
+
+
 @pytest.fixture
 def dev():
     """The CUDA device; tests that take it are marked `cuda` and skip
