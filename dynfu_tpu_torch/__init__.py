@@ -1,8 +1,8 @@
 """dynfu_tpu_torch — the PyTorch / CUDA port of dynfu_tpu for NVIDIA Hopper.
 
-The same DynamicFusion engine as dynfu_tpu, with the same module layout, in
-eager PyTorch. Every Pallas kernel on the parity and fusion frame loops is a
-CUDA C++ kernel written for sm_90a (csrc/), built at first use by
+The same DynamicFusion and rigid KinFu engines as dynfu_tpu, with the same
+module layout, in eager PyTorch. Every Pallas kernel of dynfu_tpu is a CUDA
+C++ kernel written for sm_90a (csrc/), built at first use by
 `dynfu_tpu_torch.kernels` and launched through its wrapper:
 
 * marching-cubes triangle pack     -> mesh.mc_cuda.pack_triangles
@@ -11,6 +11,7 @@ CUDA C++ kernel written for sm_90a (csrc/), built at first use by
 * fused warp (k-NN + DQB or DLB)   -> ops.warp_cuda.warp_fused
 * GN data-term Gram                -> solver.gram_cuda.data_normal
 * SE(3) monomial Grams             -> solver.gram_cuda.monomial_grams
+* rigid ICP's stencil fetch        -> ops.stencil_cuda.fetch_stencil
 
 A wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; nothing falls back from one to the other.

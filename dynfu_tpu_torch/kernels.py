@@ -49,6 +49,7 @@ SIGNATURES = {
     "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "dynfu_fetch_stencil": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -134,3 +134,9 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
                                          (0, 0, 0, max_verts - max_tris * 3))
     total = torch.clamp_max(v_offsets[-1] + occ_nverts[-1], max_tris * 3)
     return stream, total.to(torch.int32), n_dropped
+
+
+def mesh_to_world(vertices: torch.Tensor, vol: TsdfVolume) -> torch.Tensor:
+    """Volume-frame triangle vertices -> world frame by the volume pose (the
+    rigid pipeline's convertToMesh, kinfu.cpp:237-259)."""
+    return vertices @ vol.pose_r.T + vol.pose_t

@@ -3,8 +3,8 @@
 The JAX engine's state arrives as plain numpy arrays and frozen dataclasses
 (this module imports neither jax nor dynfu_tpu): the dataclasses convert
 field by field by name, and the arrays become tensors on the port's device.
-The parity and fusion tests use it to start the port's frame k+1 from the
-JAX engine's state after frame k.
+The rigid, parity and fusion tests use it to start the port's frame k+1
+from the JAX engine's state after frame k.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from dynfu_tpu_torch.core.camera import Intr
 from dynfu_tpu_torch.engine.dynfusion import DynFusion, Frame
+from dynfu_tpu_torch.engine.kinfu import KinFu
 from dynfu_tpu_torch.engine.params import (DynFuParams, KinFuParams,
                                            SolverParams)
 from dynfu_tpu_torch.volume.tsdf import TsdfVolume
@@ -61,26 +62,54 @@ def frame(idx, vertices, normals, mask, device) -> Frame:
                  _t(mask, device, torch.bool))
 
 
+def pyramid(levels, device):
+    """[(points, normals)] per level -> tensors."""
+    return [(_t(p, device, torch.float32), _t(n, device, torch.float32))
+            for p, n in levels]
+
+
+def _poses(poses):
+    return [(np.asarray(R, np.float32), np.asarray(t, np.float32))
+            for R, t in poses]
+
+
+def load_kinfu_state(engine: KinFu, *, vol, poses, prev_pyr,
+                     frame_counter: int) -> KinFu:
+    """Install a JAX KinFu's state after a frame into `engine`: vol =
+    (tsdf, weight, pose_r, pose_t), poses a list of (R, t), prev_pyr the
+    reference pyramid [(points, normals)] (None before frame 0)."""
+    dev = engine.device
+    engine.vol = volume(*vol, device=dev)
+    engine.poses = _poses(poses)
+    engine.prev_pyr = None if prev_pyr is None else pyramid(prev_pyr, dev)
+    engine.frame_counter = int(frame_counter)
+    return engine
+
+
 def load_engine_state(engine: DynFusion, *, vol, wf, canonical,
                       frame_counter: int, poses, soup_inverse=None,
-                      soup_mask=None, canonical_mult=None) -> DynFusion:
+                      soup_mask=None, canonical_mult=None,
+                      canonical_warped=None, prev_live_pyr=None) -> DynFusion:
     """Install the JAX engine's state after a frame into `engine`.
 
     vol = (tsdf, weight, pose_r, pose_t), wf = (pos, dqs, w, mask, count),
-    canonical = (idx, vertices, normals, mask); poses a list of (R, t). The
-    soup dedup state (soup_inverse, soup_mask, canonical_mult) exists in
-    parity mode only; a fusion-mode canonical is the unique edge vertex set
-    itself."""
+    canonical and canonical_warped = (idx, vertices, normals, mask) (the
+    warped one defaults to the canonical); poses a list of (R, t). The soup
+    dedup state (soup_inverse, soup_mask, canonical_mult) exists in parity
+    mode only; a fusion-mode canonical is the unique edge vertex set itself.
+    prev_live_pyr is the camera tracking's reference pyramid."""
     dev = engine.device
     engine.vol = volume(*vol, device=dev)
     engine.warpfield = warpfield(*wf, device=dev)
     engine.canonical = frame(*canonical, device=dev)
-    engine.canonical_warped = engine.canonical
+    engine.canonical_warped = (engine.canonical if canonical_warped is None
+                               else frame(*canonical_warped, device=dev))
     if soup_inverse is not None:
         engine.soup_inverse = _t(soup_inverse, dev, torch.int32)
         engine.soup_mask = _t(soup_mask, dev, torch.bool)
         engine.canonical_mult = _t(canonical_mult, dev, torch.float32)
+    if prev_live_pyr is not None:
+        engine.prev_live_pyr = pyramid(prev_live_pyr, dev)
     engine.frame_counter = int(frame_counter)
-    engine.poses = [(np.asarray(R, np.float32), np.asarray(t, np.float32))
-                    for R, t in poses]
+    engine.poses = _poses(poses)
     return engine

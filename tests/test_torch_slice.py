@@ -6,12 +6,17 @@ Stepwise: after each JAX frame its state is loaded into the port
 (utils/convert.py) and the port's next frame is held against JAX's. Free
 running: the port runs all three frames on its own."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dynfu_tpu.engine.dynfusion import DynFusion as JaxDynFusion
+from dynfu_tpu.engine.dynfusion import Frame as JFrame
+from dynfu_tpu.volume.tsdf import TsdfVolume as JVolume
+from dynfu_tpu.warp.field import WarpField as JWarpField
 from dynfu_tpu_torch.engine.dynfusion import DynFusion
 from dynfu_tpu_torch.utils import convert
 from dynfu_tpu_torch.warp import field as tfield
@@ -132,3 +137,46 @@ def test_free_running_three_frames(jax_run):
     assert torch.isfinite(torch.as_tensor(got["post"][m])).all()
     np.testing.assert_allclose(got["post"][m], want["post"][m], rtol=0,
                                atol=1e-3)
+
+
+def _load_jax(e, st):
+    """Install a _state() snapshot into the JAX engine `e`."""
+    e.vol = JVolume(*(jnp.asarray(a) for a in st["vol"]))
+    e.warpfield = JWarpField(*(jnp.asarray(a) for a in st["wf"]))
+    idx, v, n, m = st["canonical"]
+    e.canonical = JFrame(idx, jnp.asarray(v), jnp.asarray(n), jnp.asarray(m))
+    e.canonical_warped = e.canonical
+    for k in ("soup_inverse", "soup_mask", "canonical_mult"):
+        setattr(e, k, jnp.asarray(st[k]))
+    e.frame_counter = st["frame_counter"]
+    e.poses = list(st["poses"])
+    return e
+
+
+def test_unique_edge_frame_from_jax_state(jax_run):
+    """Frame 1 with corr_unique_edges (the >= 384^3 preset's live set: the
+    unique isosurface edge vertices instead of the marching-cubes soup) from
+    JAX's state after frame 0: the live set equal index for index, the same
+    counters and node count, the soup left to mesh() on demand, the warped
+    cloud within 1e-4 m as in the test above."""
+    states, _ = jax_run
+    params = dataclasses.replace(small_dynfu_params(), corr_unique_edges=True,
+                                 max_edge_verts=1 << 13, edge_col_budget=8)
+    jax_eng = _load_jax(JaxDynFusion(params), states[1])
+    jax_eng(FRAMES[1])
+    port = convert.load_engine_state(_port(params), **states[1])
+    assert port(FRAMES[1]) is True
+    np.testing.assert_array_equal(port.live.vertices,
+                                  np.asarray(jax_eng.live.vertices))
+    np.testing.assert_array_equal(port.live.mask,
+                                  np.asarray(jax_eng.live.mask))
+    assert int(port.live.mask.sum()) > 500
+    got, want = _port_outputs(port), _outputs(jax_eng, np.array)
+    for k in ("mc_dropped", "corr_dropped", "count"):
+        assert got[k] == want[k]
+    assert port.mesh_vertices is None and jax_eng.mesh_vertices is None
+    m = want["mask"]
+    np.testing.assert_allclose(got["warped"][m], want["warped"][m], rtol=0,
+                               atol=1e-4)
+    verts, n = port.mesh()
+    assert int(n) > 0 and torch.isfinite(verts[:int(n)]).all()
