@@ -17,11 +17,15 @@
    120x160 with R = 4) — checks that they agree (selections and the
    stencil exactly, NaN positions included; floats within the stated
    tolerance) and times each: CUDA events over back-to-back calls (ms), the
+   host's time per call without waiting for the card (host_ms), the
    profiler's device time per call (device_ms), the plain version
    (plain_ms) and, where one PyTorch call computes the same function, that
    call (library_ms); bound_ms is the least time the card could take (the
    larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
-   of float32), from this run's inputs;
+   of float32), from this run's inputs. The two warp rows and the monomial
+   Grams also report the candidates per warp or the segments that took the
+   global-atomic route, from the plain models of the kernels' rules at the
+   launch shape the kernel's own code picks;
 4. small-input checks: three frames of a 64^3 scene in parity mode, in
    SE(3) fusion mode and through rigid KinFu (120x160) on the card, each
    against the same engine on the CPU;
@@ -30,7 +34,8 @@
    version run on a CUDA tensor; after each, every kernel the path launched
    is held against its plain version, with the tolerances above, at the
    path's own largest call (its arguments captured during the run; these
-   checks are listed under "at_paths" in each kernel's row):
+   checks, with the candidate and tile counts, are listed under "at_paths"
+   in each kernel's row):
    - parity 128^3: run_benchmark(128, repeats=3); zero drops, the accuracy
      bounds;
    - SE(3) fusion 512^3: run_fusion_benchmark(512, rotations=True); no
@@ -156,12 +161,12 @@ KERNELS = {
                       "dynfu_tpu/ops/stencil_pallas.py:52"),
 }
 # the one PyTorch call timed as library_ms, where there is one (it computes
-# the same function; the stencil's is the fetch without the window mask)
+# the same function). The stencil has none: no single call applies the
+# window, and img[vi, ui] (the fetch without it) is another function.
 LIBRARY = {
     "pack_triangles": "boolean-index compaction of the triangle rows",
     "data_normal": "torch.matmul of the dense (s2 W)^T and W",
     "monomial_grams": "batched torch.matmul of the monomial-scaled strips",
-    "fetch_stencil": "img[vi, ui]: the same fetch without the window mask",
 }
 # main path -> the kernels it must launch
 PATHS = {
@@ -219,20 +224,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20):
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time per call of fn() over `iters` back-to-back calls, not
+    waiting for the card: where it is above the device time, the event
+    time measures it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
+
+
+def device_ms(fn, iters: int = 20, tries: int = 6):
     """Device time per call of every kernel fn() launches (memsets
-    included), from torch.profiler; None if the profiler saw no device
-    time."""
+    included), from torch.profiler. The profiler sometimes drops events: a
+    window counts only if it recorded each kernel a whole multiple of
+    `iters` times; None if none of `tries` windows did."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if evs and all(e.count % iters == 0 for e in evs):
+            return sum(e.self_device_time_total for e in evs) / 1e3 / iters
+    return None
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -402,13 +425,25 @@ def corr_case(args):
              + Qp * (4 * F + 1), scanned * tq * 8), None)
 
 
-def warp_case(args):
-    """The whole node table is read once; distances are needed only to the
-    active nodes (masked slots sit at FAR and are never picked while k nodes
-    are valid)."""
-    q, _, pos, _, _, mask, k, blend = args
+def warp_brute_force_ms(args) -> float:
+    """The bound of a brute-force selection, kept beside the byte bound for
+    comparison: every query's distance to every active node, plus the
+    blend."""
+    q, _, pos, _, _, mask, k, _ = args
     Q, n = q.shape[0], int(mask.sum())
-    work = (Q * 24 + pos.shape[0] * 49 + Q * 60, Q * (8 * n + 40 * k + 60))
+    return bound_ms(Q * 24 + pos.shape[0] * 49 + Q * 60,
+                    Q * (8 * n + 40 * k + 60))[0]
+
+
+def warp_case(args):
+    """The bound is the least any exact implementation needs: its bytes,
+    the queries and normals and the node table read once and the 15 floats
+    per query written once. A selection that prunes the slots can beat a
+    count of distances to every active node, so none is charged (the
+    brute-force figure is kept as bound_ms_brute_force)."""
+    q, _, pos, _, _, mask, k, blend = args
+    Q = q.shape[0]
+    work = (Q * 24 + pos.shape[0] * 49 + Q * 60, 0)
 
     def cmp_dqb(a, b):
         err = max(max_abs(x, y) for x, y in zip(a, b))
@@ -489,11 +524,9 @@ def mono_case(args):
 
 def stencil_case(args):
     """The indices in, the gathered rows in and the output out (no
-    arithmetic); the library call is the same fetch without the window
-    mask, img[vi, ui]."""
+    arithmetic); no library call applies the window."""
     img, vi, ui, _ = args
     H, W, C = img.shape
-    vil, uil = vi.long(), ui.long()
 
     def cmp_stencil(a, b):
         na, nb = torch.isnan(a), torch.isnan(b)
@@ -502,7 +535,7 @@ def stencil_case(args):
         require(err == 0.0, "fetch_stencil values differ")
         return err
     return (args, cmp_stencil, "exact, NaN positions included",
-            (H * W * (8 + 2 * 4 * C), 0), lambda: img[vil, uil])
+            (H * W * (8 + 2 * 4 * C), 0), None)
 
 
 # row -> its case: (args, compare(kernel_out, plain_out) -> max_abs_err,
@@ -589,6 +622,42 @@ def kernel_cases(verts, wf, fstate):
     return cases
 
 
+# --- the redesigned kernels' data-dependent work -------------------------
+
+
+def quantiles(x: torch.Tensor) -> dict:
+    x = x.double()
+    return dict(mean=float(x.mean()), p95=float(torch.quantile(x, 0.95)),
+                max=float(x.max()))
+
+
+def work_stats(name, args) -> dict:
+    """The data-dependent work of a redesigned kernel on these inputs, from
+    the plain models of its rules: the candidates per warp (warps with a
+    finite query); the monomial Grams' segments, their distinct nodes, and
+    the segments and rows that took the global-atomic route."""
+    if name in ("warp_fused", "warp_fused_dlb"):
+        q, _, pos, _, _, mask, k, _ = args
+        threads = warp_cuda.launch_threads(pos.shape[0])
+        cand, has_box = warp_cuda.group_candidates(q, pos, mask, k, threads)
+        st = dict(threads=threads, slots=pos.shape[0], active=int(mask.sum()),
+                  candidates=quantiles(cand.sum(1)[has_box]))
+        del cand
+    elif name == "monomial_grams":
+        idx, w, s2, _, _, D = args
+        rows, u, min_rows = gram_cuda.mono_tiling()
+        segs = gram_cuda.mono_segments(idx, w, s2, D, rows, u, min_rows)
+        glob = [nr for _, nr, n in segs if n > u]
+        st = dict(rows=rows, u=u, min_rows=min_rows,
+                  tiles=-(-idx.shape[0] // rows), segments=len(segs),
+                  global_segments=len(glob), global_rows=sum(glob),
+                  distinct=quantiles(torch.tensor([n for *_, n in segs])))
+    else:
+        return {}
+    print(f"kernel {name} work: {json.dumps(st)}", flush=True)
+    return st
+
+
 def measure(name, args, compare, tol, work, library) -> dict:
     """Compare the kernel with its plain version on `args` and time both
     (and the library call, if any)."""
@@ -600,15 +669,21 @@ def measure(name, args, compare, tol, work, library) -> dict:
     err = compare(out_k, out_p)
     del out_k, out_p
     ms = cuda_ms(lambda: kern(*args))
+    h_ms = host_ms(lambda: kern(*args))
     dev_ms = device_ms(lambda: kern(*args))
     plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
     lib_ms = None if library is None else cuda_ms(library, iters=5)
+    extra = work_stats(name, args)
+    if name in ("warp_fused", "warp_fused_dlb"):
+        extra["bound_ms_brute_force"] = warp_brute_force_ms(args)
     b_ms, b_by = bound_ms(*work)
     print(f"kernel {name}: max_abs_err {err} ({tol}); {ms:.4f} ms "
-          f"(events), {dev_ms} ms (device), plain {plain_ms:.4f} ms, "
+          f"(events), {h_ms:.4f} ms (host), {dev_ms} ms (device), plain "
+          f"{plain_ms:.4f} ms, "
           f"library {lib_ms} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
-    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=err, ms=ms, host_ms=h_ms, device_ms=dev_ms,
+                plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def kernel_phase():

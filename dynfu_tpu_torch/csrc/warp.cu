@@ -4,13 +4,39 @@
 // Replaces warp_fused_tpu (dynfu_tpu/ops/warp_pallas.py:171, body
 // _warp_kernel :60), both of its blends. The TPU kernel runs k argmin
 // rounds over a (D, TQ) VMEM block and fetches node state by one-hot
-// matmuls. Here one thread per query selects its k nodes with the routine
-// shared with knn.cu (positions staged in shared memory), reads each
-// selected node's dq, dg_w and mask directly (L2-resident: D*13 floats),
-// and blends in registers. Bound: D*Q shared-memory distance evaluations
-// (each ~8 flops); the output is 15 floats per query and no intermediate
-// reaches device memory. Offsets are 64-bit: the fusion band warps up to
-// 2^19 queries in one launch.
+// matmuls.
+//
+// What bounds it on this card. The least any exact implementation needs is
+// its bytes: each query and normal read once and 15 floats written (0.026
+// ms at Q = 2^20). A first version selected by brute force, one thread per
+// query inserting all D staged slots into a register top-k; the nodes are
+// in no spatial order, so at most slots some lane of a warp inserts and the
+// whole warp pays the insertion's ~8 compare-and-move steps: ~D x 50 warp
+// instructions per warp, 1.8 ms at Q = 2^20, D = 640 on an H100 SXM at
+// 700 W.
+//
+// The design: the callers' queries are spatially coherent (the fused band
+// comes in z-fastest voxel order), so a block's queries span a few
+// centimetres while the nodes span the scene. Each block prunes the slots
+// to the few its queries can select, in two levels (scan_pruned in
+// topk.cuh): the block's box against all D slots, every thread bounding a
+// share of them, then each warp's box against the block's short list; per
+// node, distance bounds over the box, the k-th smallest upper bound, and
+// the candidates compacted in index order by ballot. Each thread then
+// inserts its warp's candidates only, so the selection, its order and its
+// ties equal the brute-force scan's. Most of those ~20 candidates enter
+// the list, where most of D slots did not, so the insertion runs without
+// early exits (TopK::push_swap): the branchy one diverged on nearly every
+// candidate and cost as much as all the pruning saved. Incoherent queries
+// prune little and insert more candidates: still exact. Positions are
+// staged in shared memory with 2-byte candidate lists beside them; each
+// selected node's dq, dg_w and mask are read directly (L2-resident: D x
+// 13 floats). One thread per query blends in registers; no intermediate
+// reaches device memory. A block has 256 threads, the fastest of 64 to
+// 256 on the paths' shapes in a one-off sweep (PERF.md), or the most that
+// fit where D is large and the lists would not (dynfu_warp_threads says
+// how many). Offsets are 64-bit: the moving camera's band warps 2^20
+// queries in one launch.
 //
 // blend = 0, "dqb" — the reference's quirks (warp_pallas.py:98-106,121-126,
 // 154-158): invalid slots multiply by the identity, node weights scale the
@@ -76,14 +102,19 @@ __global__ void warp_fused_kernel(const float* __restrict__ q,
                                   float* __restrict__ wnormals,
                                   float* __restrict__ bdq,
                                   float* __restrict__ ratio_out) {
-  extern __shared__ float4 s_nodes[];
+  extern __shared__ float4 s_nodes[];  // D positions, then the lists
+  __shared__ PruneShared sh;
+  unsigned short* s_cand = reinterpret_cast<unsigned short*>(s_nodes + D);
   stage_nodes(s_nodes, pos, mask, D);
-  long long qi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (qi >= Q) return;
-  float3 v = make_float3(q[3 * qi], q[3 * qi + 1], q[3 * qi + 2]);
+  const long long qi = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = qi < Q;
+  const float3 v = live ? make_float3(q[3 * qi], q[3 * qi + 1], q[3 * qi + 2])
+                        : make_float3(0.f, 0.f, 0.f);
+  float3 lo, hi;
+  block_box(sh, live && finite3(v), v, lo, hi);
   TopK<K> top;
-  scan_nodes<K>(top, s_nodes, D, v.x, v.y, v.z);
-
+  scan_pruned<K>(top, s_nodes, s_cand, sh, D, lo, hi, live, v);
+  if (!live) return;
   Q4 ar = {1.f, 0.f, 0.f, 0.f}, ad = {0.f, 0.f, 0.f, 0.f};
   Q4 ref = {0.f, 0.f, 0.f, 0.f};
   float wsum = 0.f;
@@ -149,6 +180,45 @@ __global__ void warp_fused_kernel(const float* __restrict__ q,
   ratio_out[qi] = ratio;
 }
 
+// The largest block, a multiple of 32 of at most 32 * DYNFU_MAX_WARPS
+// threads, whose shared memory fits: the static PruneShared and, dynamic,
+// the D staged positions, the block's candidate list (a region of C slots
+// per warp) and one list of L per warp (scan_pruned). False if none does.
+static bool warp_block(int D, int* threads, size_t* smem) {
+  for (int t = 32 * DYNFU_MAX_WARPS; t >= 32; t -= 32) {
+    const int nw = t / 32;
+    const size_t C = (size_t)(((D + nw - 1) / nw + 31) & ~31);
+    const size_t L = (size_t)((D + 31) & ~31);
+    const size_t need =
+        (size_t)D * sizeof(float4) + nw * (C + L) * sizeof(short);
+    if (need + sizeof(PruneShared) <= DYNFU_MAX_SMEM) {
+      *threads = t;
+      *smem = need;
+      return true;
+    }
+  }
+  return false;
+}
+
+template <int K, bool DLB>
+static int warp_launch(const float* queries, const float* normals,
+                       const float* pos, const float* dqs, const float* w,
+                       const unsigned char* mask, int Q, int D,
+                       float* warped, float* wnormals, float* bdq,
+                       float* ratio, cudaStream_t s) {
+  int threads;
+  size_t smem;
+  if (!warp_block(D, &threads, &smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      warp_fused_kernel<K, DLB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  warp_fused_kernel<K, DLB><<<dynfu_blocks(Q, threads), threads, smem, s>>>(
+      queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
+      ratio);
+  return (int)cudaGetLastError();
+}
+
 DYNFU_API int dynfu_warp_fused(const float* queries, const float* normals,
                                const float* pos, const float* dqs,
                                const float* w, const unsigned char* mask,
@@ -156,25 +226,19 @@ DYNFU_API int dynfu_warp_fused(const float* queries, const float* normals,
                                float* wnormals, float* bdq, float* ratio,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int T = 128;
-  size_t smem = (size_t)D * sizeof(float4);
   if (blend != 0 && blend != 1) return (int)cudaErrorInvalidValue;
   DYNFU_DISPATCH_K(k, {
-    if (blend == 1) {
-      cudaFuncSetAttribute(warp_fused_kernel<KK, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-      warp_fused_kernel<KK, true><<<dynfu_blocks(Q, T), T, smem, s>>>(
-          queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
-          ratio);
-    } else {
-      cudaFuncSetAttribute(warp_fused_kernel<KK, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-      warp_fused_kernel<KK, false><<<dynfu_blocks(Q, T), T, smem, s>>>(
-          queries, normals, pos, dqs, w, mask, Q, D, warped, wnormals, bdq,
-          ratio);
-    }
+    return blend == 1
+               ? warp_launch<KK, true>(queries, normals, pos, dqs, w, mask, Q,
+                                       D, warped, wnormals, bdq, ratio, s)
+               : warp_launch<KK, false>(queries, normals, pos, dqs, w, mask,
+                                        Q, D, warped, wnormals, bdq, ratio, s);
   });
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// the threads per block dynfu_warp_fused launches with for D slots
+DYNFU_API int dynfu_warp_threads(int D, int* threads) {
+  size_t smem;
+  return warp_block(D, threads, &smem) ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -44,8 +44,10 @@ SIGNATURES = {
     "dynfu_knn_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "dynfu_warp_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
+    "dynfu_warp_threads": [_I, _P],
     "dynfu_monomial_grams": [_P, _P, _P, _P, _P, _I, _I, _I,
                              _P, _P, _P, _P],
+    "dynfu_monomial_grams_tiling": [_P],
     "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],

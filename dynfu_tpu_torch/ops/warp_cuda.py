@@ -4,7 +4,10 @@ version.
 Replaces warp_fused_tpu, both blends (dynfu_tpu/ops/warp_pallas.py:171).
 Kernel source: csrc/warp.cu. The plain version below computes the same
 numbers in the kernel's operation order, column by column, so that on the
-card the two agree to the last bit or two.
+card the two agree to the last bit or two. The kernel selects each query's
+k nodes from a pruned candidate list (csrc/topk.cuh, scan_pruned);
+`pruned_select` is a plain model of that rule, for the tests and for
+chip_smoke.py's candidate counts, and is on no main path.
 
 blend="dqb" is the reference's sequential product (dual-only scaling, real
 part normalised, normals fully transformed); blend="dlb" is Kavan's linear
@@ -15,10 +18,12 @@ per blend in `warp_fused.launches`.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from dynfu_tpu_torch import kernels
-from dynfu_tpu_torch.ops.knn_cuda import select_k
+from dynfu_tpu_torch.ops.knn_cuda import FAR, masked_sqdist, select_k
 
 
 def _qmul(a, b):
@@ -62,6 +67,83 @@ def _blend_code(blend: str) -> int:
     if blend not in BLENDS:
         raise ValueError(f"unknown blend {blend!r}")
     return BLENDS[blend]
+
+
+def launch_threads(D: int) -> int:
+    """The threads per block the kernel launches with for D slots (256, or
+    the most whose candidate lists fit in shared memory), as the kernel's
+    own launch code picks them; on the card only."""
+    out = ctypes.c_int(0)
+    kernels.check(kernels.load().dynfu_warp_threads(D, ctypes.byref(out)),
+                  "warp_threads")
+    return out.value
+
+
+def _box_bounds(nodes, lo, hi):
+    """(mind, maxd) (G, D): bounds of the squared distance from node j to
+    any query in box g, per axis as in csrc/topk.cuh's box_bounds."""
+    p, lo, hi = nodes[None], lo[:, None], hi[:, None]
+    m = torch.where(p > hi, p - hi, torch.where(p < lo, lo - p, 0.0))
+    M = torch.maximum((p - lo).abs(), (p - hi).abs())
+    mind = m[..., 0] * m[..., 0] + m[..., 1] * m[..., 1] + m[..., 2] * m[..., 2]
+    maxd = M[..., 0] * M[..., 0] + M[..., 1] * M[..., 1] + M[..., 2] * M[..., 2]
+    return mind, maxd
+
+
+def _box(q, fin, dim):
+    lo = torch.where(fin[..., None], q, torch.inf).amin(dim)
+    hi = torch.where(fin[..., None], q, -torch.inf).amax(dim)
+    return lo, hi
+
+
+def _candidates(nodes, lo, hi, k, keep):
+    """The rule at one level: nodes in `keep` (G, D) whose mind is not above
+    the k-th smallest maxd among `keep` (NaN as +inf)."""
+    mind, maxd = _box_bounds(nodes, lo, hi)
+    maxd = torch.where(torch.isnan(maxd) | ~keep, torch.inf, maxd)
+    ub = torch.kthvalue(maxd, k, dim=1).values
+    return keep & ~(mind > ub[:, None])
+
+
+def group_candidates(queries, node_pos, node_mask, k: int, threads: int):
+    """The kernel's candidate lists: (cand (G, D) bool, has_box (G,) bool),
+    one per warp (32 consecutive queries) of each block of `threads`. The
+    block's list holds the nodes its box does not rule out; the warp's,
+    those of the block's list its own box does not rule out. A warp
+    without a finite query has no box and no candidates."""
+    Q = queries.shape[0]
+    B, nw = -(-Q // threads), threads // 32
+    nodes = torch.where(node_mask[:, None], node_pos, FAR)
+    qb = torch.cat([queries, queries.new_full((B * threads - Q, 3),
+                                              torch.nan)])
+    qb = qb.reshape(B, threads, 3)
+    fin = torch.isfinite(qb).all(-1)
+    lo, hi = _box(qb, fin, 1)
+    block_cand = _candidates(nodes, lo, hi, k, fin.any(1)[:, None].expand(
+        B, nodes.shape[0]))
+    fw = fin.reshape(B * nw, 32)
+    wlo, whi = _box(qb.reshape(B * nw, 32, 3), fw, 1)
+    has_box = fw.any(1)
+    keep = block_cand.repeat_interleave(nw, 0) & has_box[:, None]
+    return _candidates(nodes, wlo, whi, k, keep), has_box
+
+
+def pruned_select(queries, node_pos, node_mask, k: int, threads: int):
+    """(idx (Q, k) int64, sqd (Q, k)): each query's k nearest among its
+    warp's candidates in (distance, index) order; a query with a
+    non-finite coordinate gets slots 0..k-1 at +inf. Equal to select_k's
+    brute force (the tests hold it so)."""
+    cand, _ = group_candidates(queries, node_pos, node_mask, k, threads)
+    cand = cand.repeat_interleave(32, 0)[:queries.shape[0]]
+    d = masked_sqdist(queries, node_pos, node_mask)
+    d, order = torch.sort(d, dim=1, stable=True)
+    out = torch.gather(~cand, 1, order).to(torch.int32)
+    first = torch.sort(out, dim=1, stable=True).indices[:, :k]
+    idx, sqd = torch.gather(order, 1, first), torch.gather(d, 1, first)
+    nonfinite = ~torch.isfinite(queries).all(-1)
+    idx[nonfinite] = torch.arange(k, device=queries.device)
+    sqd[nonfinite] = torch.inf
+    return idx, sqd
 
 
 def warp_fused_plain(queries, normals, node_pos, node_dqs, node_w, node_mask,

@@ -6,10 +6,15 @@ replaces monomial_grams_tpu (gram_pallas.py:184; kernel csrc/mono_gram.cu),
 the SE(3) solve's ten monomial Grams and two rhs. All sum in IEEE float32
 (the TPU kernels' 3-pass bf16 split is a TPU device, not carried over); the
 kernels' atomics sum in a varying order, so each kernel and its plain
-version agree to float32 roundoff, not bit for bit.
+version agree to float32 roundoff, not bit for bit. The monomial-Gram
+kernel accumulates segments of rows in shared memory; `mono_segments` is a
+plain model of how it cuts them (for the tests and chip_smoke.py, on no
+main path).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -68,6 +73,42 @@ def monomials(y):
     yx, yy, yz = y.unbind(-1)
     return torch.stack([torch.ones_like(yx), yx, yy, yz, yx * yx, yx * yy,
                         yx * yz, yy * yy, yy * yz, yz * yz])  # (10, N)
+
+
+def mono_segments(data_idx, data_w, s2, D: int, rows: int, u: int,
+                  min_rows: int):
+    """[(first row, rows, distinct nodes)] in the order the kernel's blocks
+    take them: each tile of `rows` rows is cut into segments, a segment
+    with more than u distinct live nodes (indices in [0, D) of slots with
+    sqrt(max(s2, 0)) w != 0) halved while it is longer than min_rows, the
+    next one starting at the length the last ended with. A segment left
+    with more than u takes the global-atomic route."""
+    N = data_idx.shape[0]
+    rs = torch.sqrt(torch.clamp_min(s2, 0.0))
+    live = ((data_idx >= 0) & (data_idx < D)
+            & (rs[:, None] * data_w != 0.0)).cpu().numpy()
+    idx = data_idx.cpu().numpy()
+    out = []
+    for t0 in range(0, N, rows):
+        end, r0, length = min(N, t0 + rows), t0, rows
+        while r0 < end:
+            nr = min(length, end - r0)
+            n = len(set(idx[r0:r0 + nr][live[r0:r0 + nr]].tolist()))
+            if n > u and nr > min_rows:
+                length = (nr + 1) // 2
+                continue
+            out.append((r0, nr, n))
+            r0 += nr
+    return out
+
+
+def mono_tiling() -> tuple[int, int, int]:
+    """The monomial-Gram kernel's tiling, as compiled into it: (rows per
+    tile, local slots u, shortest halved segment); on the card only."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.load().dynfu_monomial_grams_tiling(out),
+                  "monomial_grams_tiling")
+    return tuple(out)
 
 
 def monomial_grams_plain(data_idx, data_w, s2, y, delta, D: int):

@@ -6,8 +6,10 @@ r = 0.22 m moving 4 mm per frame). Pallas kernels run in interpret mode, as
 the JAX package's own tests run them.
 
 The tests marked `cuda` hold the DLB warp and monomial-Gram CUDA kernels
-against their plain versions at edge-case shapes; they skip without a
-card."""
+against their plain versions at edge-case shapes (for the Grams: tiles of
+rows that share one node set, tiles with more distinct nodes than the
+shared-memory slots, padding, s2 = 0 rows, K < 8, D = 1024); they skip
+without a card."""
 
 import dataclasses
 
@@ -173,6 +175,23 @@ def test_monomial_grams_plain_matches_jax():
             x = np.asarray(x)
             np.testing.assert_allclose(g.numpy(), x, rtol=0,
                                        atol=1e-5 * np.abs(x).max())
+
+
+def test_mono_segments():
+    """How the monomial-Gram kernel cuts its tiles: distinct in-range
+    indices of slots with sqrt(max(s2, 0)) w != 0; a segment with more than
+    u is halved down to min_rows, and the next starts at the length the
+    last ended with; a new tile starts at full length."""
+    idx = torch.tensor([[0, 1], [0, 1], [2, 3], [4, 5], [6, 9], [6, 7]],
+                       dtype=torch.int32)
+    w = torch.ones((6, 2))
+    w[2, 1] = 0.0
+    s2 = torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, -1.0])
+    got = gram_cuda.mono_segments(idx, w, s2, 8, 4, 2, 1)
+    assert got == [(0, 2, 2), (2, 1, 1), (3, 1, 2), (4, 2, 1)]
+    # u = 1: row 3 alone has two nodes and takes the global route
+    got = gram_cuda.mono_segments(idx, w, s2, 8, 4, 1, 1)
+    assert got == [(0, 1, 2), (1, 1, 2), (2, 1, 1), (3, 1, 2), (4, 2, 1)]
 
 
 def _patch_scene(seed, n_nodes=12, n_verts=400, extent=0.5, cap=16):
@@ -543,6 +562,61 @@ def test_monomial_grams_kernel_equals_plain(dev, N, K, D):
             for a in _gram_inputs(N + K, N, K, D)[:5]]
     got = gram_cuda.monomial_grams(*args, D)
     want = gram_cuda.monomial_grams_plain(*args, D)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        scale = max(float(x.abs().max()), 1e-30)
+        assert float((g - x).abs().max()) <= 1e-5 * scale
+
+
+def _tiled_gram_inputs(kind, N, K, D):
+    """Rows as the SE(3) solve sees them, in surface order: "shared" gives
+    every row one node set (the most contention); "coherent" each run of
+    256 rows K of a window of 2K nodes somewhere in [0, D), with a run of
+    rows of random nodes (tiles with more distinct nodes than the
+    shared-memory slots); padded slots, s2 = 0 rows."""
+    rng = np.random.default_rng(N + K + D)
+    if kind == "shared":
+        idx = np.tile(rng.choice(D, K, replace=False), (N, 1))
+    else:
+        base = rng.integers(0, D - 2 * K, -(-N // 256)).repeat(256)[:N]
+        idx = base[:, None] + np.argsort(rng.random((N, 2 * K)),
+                                         axis=1)[:, :K]
+        idx[N // 2:N // 2 + 1200] = np.argsort(
+            rng.random((1200, D)), axis=1)[:, :K]
+    idx = idx.astype(np.int32)
+    idx[rng.random((N, K)) < 0.05] = D
+    idx[rng.random((N, K)) < 0.02] = -1
+    w = rng.random((N, K), dtype=np.float32)
+    s2 = rng.random(N, dtype=np.float32)
+    s2[rng.random(N) < 0.3] = 0.0
+    y = rng.normal(0, 0.3, (N, 3)).astype(np.float32)
+    delta = rng.normal(0, 0.01, (N, 3)).astype(np.float32)
+    return idx, w, s2, y, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,K,D", [("shared", 5000, 8, 640),
+                                        ("coherent", 6000, 8, 1024),
+                                        ("coherent", 4000, 3, 1024)])
+def test_monomial_grams_tiles_equal_plain(dev, kind, N, K, D):
+    """<= 1e-5 of max |.| at the kernel's tiling; the coherent rows take
+    both routes (shared-memory segments, halved ones among them, and
+    global-atomic ones), the shared node set only the first."""
+    args = [torch.as_tensor(a, device=dev)
+            for a in _tiled_gram_inputs(kind, N, K, D)]
+    want = gram_cuda.monomial_grams_plain(*args, D)
+    rows, u, min_rows = gram_cuda.mono_tiling()
+    segs = gram_cuda.mono_segments(args[0], args[1], args[2], D, rows, u,
+                                   min_rows)
+    n_global = sum(n > u for _, _, n in segs)
+    if kind == "shared":
+        assert n_global == 0
+    else:
+        assert 0 < n_global < len(segs)
+        # halved segments in shared memory (short, and not the last)
+        assert any(n <= u and nr < rows and r0 + nr < N
+                   for r0, nr, n in segs)
+    got = gram_cuda.monomial_grams(*args, D)
     torch.cuda.synchronize()
     for g, x in zip(got, want):
         scale = max(float(x.abs().max()), 1e-30)

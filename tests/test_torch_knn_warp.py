@@ -1,12 +1,17 @@
 """PyTorch port vs JAX reference: k-NN with feature fetch, the windowed
 1-NN correspondence and its tiers, the fused DQB warp, the unsupported
 mask and node insertion. Seeded numpy inputs, CPU; Pallas kernels run in
-interpret mode, as the JAX package's own tests run them.
+interpret mode, as the JAX package's own tests run them. The fused warp's
+candidate rule (a plain model of the kernel's pruned selection) is held
+against the brute-force selection.
 
 The tests marked `cuda` hold the k-NN, warp and 1-NN CUDA kernels against
 their plain versions at edge-case shapes (odd sizes, fewer valid nodes
-than k, all-inf and NaN rows, ragged sub-tiles, an empty window); they
-skip without a card."""
+than k, all-inf and NaN rows, ragged sub-tiles, an empty window, spatially
+sorted queries that the warp prunes for, D = 8192); they skip without a
+card."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -205,6 +210,75 @@ def test_unsupported_mask_and_update_warpfield_match_jax():
     np.testing.assert_array_equal(tnew.w.numpy(), np.asarray(jnew.w))
 
 
+# --- the fused warp's candidate rule ---------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _band(res=96):
+    """A sphere's front band voxels in z-fastest order, as the fused band
+    comes out of the compaction: spatially coherent."""
+    g = np.stack(np.meshgrid(*[np.arange(res)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3) / res
+    r = np.linalg.norm(g - 0.5, axis=1)
+    return g[(np.abs(r - 0.35) < 1.5 / res) & (g[:, 2] < 0.5)].astype(
+        np.float32)
+
+
+def _band_queries(n):
+    g = _band()
+    return g[len(g) // 3:len(g) // 3 + n].copy()
+
+
+PRUNE_CASES = ["sorted", "random", "duplicates", "few_valid", "nonfinite",
+               "padded"]
+
+
+def _prune_inputs(case, D, k, Q=1024):
+    """(queries, node_pos, node_mask): nodes on the sphere the queries lie
+    on, a tenth masked, and the case's twist."""
+    rng = np.random.default_rng(D + k)
+    u = rng.normal(size=(D, 3))
+    pos = (0.5 + 0.35 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(
+        np.float32)
+    mask = rng.random(D) > 0.1
+    q = _band_queries(Q)
+    if case == "random":
+        q = q[rng.permutation(Q)]
+    elif case == "duplicates":  # on lattices: equal positions, exact ties
+        pos = (np.round(pos * 8) / 8).astype(np.float32)
+        q = (np.round(q * 16) / 16).astype(np.float32)
+    elif case == "few_valid":  # k - 1 valid nodes: masked slots are picked
+        mask[:] = False
+        mask[rng.choice(D, k - 1, replace=False)] = True
+    elif case == "nonfinite":
+        q[::7] = np.nan
+        q[3::11, 1] = np.inf
+        q[5::13, 2] = -np.inf
+        q[96:160] = np.nan  # whole warps without a finite query
+    elif case == "padded":  # the fused band pads with voxel (0, 0, 0)
+        q[-300:] = 0.0
+    return q, pos, mask
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("D", [37, 1024])
+@pytest.mark.parametrize("case", PRUNE_CASES)
+def test_pruned_selection_equals_brute_force(case, D, k):
+    """The plain model of the warp kernel's candidate rule (blocks of 32
+    and 256 queries) selects exactly what select_k's brute force does,
+    index for index and distance for distance, +inf rows included; on
+    sorted queries it prunes most slots."""
+    q, pos, mask = (_t(a) for a in _prune_inputs(case, D, k))
+    want = knn_cuda.select_k(q, pos, mask, k)
+    for threads in (32, 256):
+        got = warp_cuda.pruned_select(q, pos, mask, k, threads)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+    if case == "sorted" and D == 1024:
+        cand, has_box = warp_cuda.group_candidates(q, pos, mask, k, 256)
+        assert float(cand.sum(1)[has_box].double().mean()) < D / 4
+
+
 @pytest.fixture
 def dev():
     """The CUDA device; tests that take it are marked `cuda` and skip
@@ -296,3 +370,40 @@ def test_window_sweep_kernel_equals_plain(dev, W, F):
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blend", ["dqb", "dlb"])
+@pytest.mark.parametrize("case,D,k", [(c, 1024, 8) for c in PRUNE_CASES]
+                         + [("duplicates", 37, 8), ("few_valid", 37, 8),
+                            ("nonfinite", 37, 1), ("sorted", 7233, 8),
+                            ("sorted", 8192, 8)])
+def test_warp_pruned_kernel_equals_plain(dev, blend, case, D, k):
+    """The pruned selection at the block size the kernel picks (256
+    threads; fewer at D = 7233 and 8192, where the lists and the static
+    shared memory would not fit): ratio bitwise (the selection), the other
+    outputs within 1e-6 (DQB) or 1e-5 (DLB), NaN where the plain version
+    has NaN."""
+    q, pos, mask = _prune_inputs(case, D, k)
+    rng = np.random.default_rng(D)
+    t = rng.normal(0, 0.02, (D, 3))
+    dqs = np.zeros((D, 8))
+    dqs[:, 0] = 1.0
+    dqs[:, 1:4] = rng.normal(0, 0.05, (D, 3))
+    dqs[:, :4] /= np.linalg.norm(dqs[:, :4], axis=1, keepdims=True)
+    dqs[:, 5:] = 0.5 * t
+    dqs[rng.random(D) < 0.33] *= -1.0
+    w = rng.uniform(0.02, 0.1, D)
+    n = rng.normal(size=q.shape)
+    args = [torch.as_tensor(a, dtype=dt, device=dev) for a, dt in (
+        (q, torch.float32), (n, torch.float32), (pos, torch.float32),
+        (dqs, torch.float32), (w, torch.float32), (mask, torch.bool))]
+    want = warp_cuda.warp_fused_plain(*args, k, blend)
+    tol = 1e-6 if blend == "dqb" else 1e-5
+    threads = warp_cuda.launch_threads(D)
+    assert threads == 256 if D <= 1024 else 32 <= threads < 256
+    got = warp_cuda.warp_fused(*args, k, blend)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], want[3])
+    for g, x in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, x, rtol=0, atol=tol, equal_nan=True)
