@@ -22,10 +22,14 @@
    (plain_ms) and, where one PyTorch call computes the same function, that
    call (library_ms); bound_ms is the least time the card could take (the
    larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
-   of float32), from this run's inputs. The two warp rows and the monomial
-   Grams also report the candidates per warp or the segments that took the
-   global-atomic route, from the plain models of the kernels' rules at the
-   launch shape the kernel's own code picks;
+   of float32), from this run's inputs. The two warp rows and the k-NN also
+   report the candidates per warp, the 1-NN the sub-tiles each warp
+   scanned, and the monomial Grams the segments that took the global-atomic
+   route, from the plain models of the kernels' rules at the launch shape
+   the kernel's own code picks (with the blocks and waves of the k-NN and
+   the 1-NN). The data Gram must give the same bits over three launches
+   (and is compared with its plain fixed-order model); whether the
+   monomial Grams do is printed;
 4. small-input checks: three frames of a 64^3 scene in parity mode, in
    SE(3) fusion mode and through rigid KinFu (120x160) on the card, each
    against the same engine on the CPU;
@@ -33,9 +37,10 @@
    read just after, each requiring its kernels launched and no plain
    version run on a CUDA tensor; after each, every kernel the path launched
    is held against its plain version, with the tolerances above, at the
-   path's own largest call (its arguments captured during the run; these
-   checks, with the candidate and tile counts, are listed under "at_paths"
-   in each kernel's row):
+   path's own largest call (its arguments captured during the run; for
+   the 1-NN, the main and the escalate pass; these checks, with the
+   candidate, sub-tile and segment counts, are listed under "at_paths" in
+   each kernel's row):
    - parity 128^3: run_benchmark(128, repeats=3); zero drops, the accuracy
      bounds;
    - SE(3) fusion 512^3: run_fusion_benchmark(512, rotations=True); no
@@ -239,10 +244,11 @@ def host_ms(fn, iters: int = 20) -> float:
 
 
 def device_ms(fn, iters: int = 20, tries: int = 6):
-    """Device time per call of every kernel fn() launches (memsets
-    included), from torch.profiler. The profiler sometimes drops events: a
-    window counts only if it recorded each kernel a whole multiple of
-    `iters` times; None if none of `tries` windows did."""
+    """(device time per call of every kernel fn() launches, memsets
+    included, {kernel name: its share}), from torch.profiler. The profiler
+    sometimes drops events: a window counts only if it recorded each kernel
+    a whole multiple of `iters` times; (None, {}) if none of `tries`
+    windows did."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -254,8 +260,10 @@ def device_ms(fn, iters: int = 20, tries: int = 6):
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         if evs and all(e.count % iters == 0 for e in evs):
-            return sum(e.self_device_time_total for e in evs) / 1e3 / iters
-    return None
+            per = {e.key[:80]: e.self_device_time_total / 1e3 / iters
+                   for e in evs}
+            return sum(per.values()), per
+    return None, {}
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -390,10 +398,13 @@ def pack_case(args):
 
 
 def knn_case(args):
-    """Distances are needed only to the active nodes."""
+    """The bound is its bytes: the queries, the nodes and the table read
+    once, the indices, distances and features written once. A selection
+    that prunes the slots can beat a count of distances to every active
+    node, so none is charged (that figure is kept as
+    bound_ms_brute_force)."""
     q, pts, k, table, mask = args
     Q, D, F = q.shape[0], pts.shape[0], table.shape[1]
-    n_act = int(mask.sum())
 
     def cmp_knn(a, b):
         require(torch.equal(a[0], b[0]), "knn_gather selections differ")
@@ -401,18 +412,32 @@ def knn_case(args):
         require(err == 0.0, "knn_gather distances or features differ")
         return err
     return (args, cmp_knn, "selections and values exact",
-            (Q * 12 + D * (12 + 1 + F * 4) + Q * k * (8 + F * 4),
-             Q * n_act * 8), None)
+            (Q * 12 + D * (12 + 1 + F * 4) + Q * k * (8 + F * 4), 0), None)
+
+
+def knn_brute_force_ms(args) -> float:
+    """The bound of a selection over every active node (Q x active
+    distances), kept beside the byte bound."""
+    q, pts, k, table, mask = args
+    Q, D, F = q.shape[0], pts.shape[0], table.shape[1]
+    return bound_ms(Q * 12 + D * (12 + 1 + F * 4) + Q * k * (8 + F * 4),
+                    Q * int(mask.sum()) * 8)[0]
 
 
 def corr_case(args):
-    """Each query tile scans the valid points of its window."""
+    """The bound is the least any exact implementation needs: its bytes,
+    the queries, the windows' points (each read once) and the winners'
+    payload rows read once, the rows and flags written once. A sweep that
+    skips sub-tiles can beat a count of distances to every valid point of
+    the window, so none is charged (that figure is kept as
+    bound_ms_brute_force)."""
     qs, ps, lo_el, _, _, tq, W, payload = args
     Qp, Pp, F = qs.shape[0], ps.shape[0], payload.shape[1]
-    valid = (ps[:, 0] < corr_cuda.BIG_X).to(torch.int64)
-    cs = torch.cat([valid.new_zeros(1), valid.cumsum(0)])
     lo = lo_el.long()
-    scanned = int((cs[torch.clamp(lo + W, max=Pp)] - cs[lo]).sum())
+    cover = torch.zeros(Pp + 1, dtype=torch.int64, device=DEV)
+    cover.index_add_(0, lo, torch.ones_like(lo))
+    cover.index_add_(0, torch.clamp(lo + W, max=Pp), -torch.ones_like(lo))
+    n_win = int((cover.cumsum(0)[:Pp] > 0).sum())
 
     def cmp_corr(a, b):
         require(torch.equal(a[1], b[1]),
@@ -421,8 +446,21 @@ def corr_case(args):
         require(err == 0.0, "nn1_window_sweep fetched rows differ")
         return err
     return (args, cmp_corr, "selections and rows exact",
-            (Qp * 12 + Pp * (12 + 4 * F) + lo_el.numel() * 12
-             + Qp * (4 * F + 1), scanned * tq * 8), None)
+            (Qp * 12 + n_win * 12 + lo_el.numel() * 12 + Qp * 4 * F
+             + Qp * (4 * F + 1), 0), None)
+
+
+def corr_brute_force_ms(args) -> float:
+    """The bound of a sweep over every valid point of each window (the
+    operations of Q x W distances), kept beside the byte bound."""
+    qs, ps, lo_el, _, _, tq, W, payload = args
+    Qp, Pp, F = qs.shape[0], ps.shape[0], payload.shape[1]
+    valid = (ps[:, 0] < corr_cuda.BIG_X).to(torch.int64)
+    cs = torch.cat([valid.new_zeros(1), valid.cumsum(0)])
+    lo = lo_el.long()
+    scanned = int((cs[torch.clamp(lo + W, max=Pp)] - cs[lo]).sum())
+    return bound_ms(Qp * 12 + Pp * (12 + 4 * F) + lo_el.numel() * 12
+                    + Qp * (4 * F + 1), scanned * tq * 8)[0]
 
 
 def warp_brute_force_ms(args) -> float:
@@ -491,7 +529,8 @@ def gram_case(args):
     def cmp_gram(a, b):
         ea = max_abs(a[0], b[0]) / max(float(b[0].abs().max()), 1e-30)
         eb = max_abs(a[1], b[1]) / max(float(b[1].abs().max()), 1e-30)
-        # float32 atomics sum in a varying order: relative tolerance
+        # the kernel sums in float64, the plain version in float32:
+        # relative tolerance
         require(max(ea, eb) <= 1e-5, f"data_normal relative error {ea}, {eb}")
         return max_abs(a[0], b[0])
     return (args, cmp_gram, "<= 1e-5 relative to max |A|, |b|",
@@ -625,24 +664,58 @@ def kernel_cases(verts, wf, fstate):
 # --- the redesigned kernels' data-dependent work -------------------------
 
 
-def quantiles(x: torch.Tensor) -> dict:
+def quantiles(x: torch.Tensor):
+    """mean, p95 and max of x; None where x is empty (no warp had work)."""
+    if not x.numel():
+        return None
     x = x.double()
     return dict(mean=float(x.mean()), p95=float(torch.quantile(x, 0.95)),
                 max=float(x.max()))
 
 
+def waves(blocks: int, per_sm: int) -> float:
+    """Blocks over the card's resident capacity (SMs x blocks per SM)."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    return blocks / (sms * per_sm)
+
+
 def work_stats(name, args) -> dict:
     """The data-dependent work of a redesigned kernel on these inputs, from
-    the plain models of its rules: the candidates per warp (warps with a
-    finite query); the monomial Grams' segments, their distinct nodes, and
-    the segments and rows that took the global-atomic route."""
-    if name in ("warp_fused", "warp_fused_dlb"):
-        q, _, pos, _, _, mask, k, _ = args
-        threads = warp_cuda.launch_threads(pos.shape[0])
-        cand, has_box = warp_cuda.group_candidates(q, pos, mask, k, threads)
-        st = dict(threads=threads, slots=pos.shape[0], active=int(mask.sum()),
-                  candidates=quantiles(cand.sum(1)[has_box]))
+    the plain models of its rules, and its launch shape as the kernel's own
+    code picks it: the candidates per warp (warps with a finite query) of
+    the warps and the k-NN; the 1-NN's sub-tiles scanned per warp (warps
+    with a live query); the monomial Grams' segments, their distinct nodes,
+    and the segments and rows that took the global-atomic route."""
+    if name in ("warp_fused", "warp_fused_dlb", "knn_gather"):
+        if name == "knn_gather":
+            q, pos, k, _, mask = args
+            launch = knn_cuda.launch_info(q.shape[0], pos.shape[0])
+            launch["waves"] = waves(launch["blocks"], launch["blocks_per_sm"])
+        else:
+            q, _, pos, _, _, mask, k, _ = args
+            launch = dict(threads=warp_cuda.launch_threads(pos.shape[0]))
+        cand, has_box = warp_cuda.group_candidates(q, pos, mask, k,
+                                                   launch["threads"])
+        st = dict(slots=pos.shape[0], active=int(mask.sum()),
+                  candidates=quantiles(cand.sum(1)[has_box]), **launch)
         del cand
+    elif name == "nn1_window_sweep":
+        qs, ps, lo_el, pre, suf, tq, W, pay = args
+        launch = corr_cuda.launch_info(qs.shape[0])
+        require(launch["sub"] == corr_cuda.SUB,
+                f"nn1: the kernel's sub-tile is {launch['sub']} points, the "
+                f"model's {corr_cuda.SUB}")
+        vals, exact, scanned, has = corr_cuda.pruned_sweep(
+            *args, split=launch["split"])
+        got = corr_cuda.nn1_window_sweep(*args)
+        st = dict(window=W, window_subtiles=-(-W // corr_cuda.SUB),
+                  subtiles=quantiles(scanned[has].reshape(-1)),
+                  subtiles_per_group=quantiles(scanned[has].sum(1)),
+                  model_matches=bool(torch.equal(got[0], vals)
+                                     and torch.equal(got[1], exact)),
+                  waves=waves(launch["blocks"], launch["blocks_per_sm"]),
+                  **launch)
+        del vals, exact, got
     elif name == "monomial_grams":
         idx, w, s2, _, _, D = args
         rows, u, min_rows = gram_cuda.mono_tiling()
@@ -658,6 +731,32 @@ def work_stats(name, args) -> dict:
     return st
 
 
+# rows whose kernel must give the same bits on every launch, and a row
+# whose repeatability is only reported (its atomics sum in a varying order)
+REPEAT_REQUIRED = ("data_normal",)
+REPEAT_REPORTED = ("monomial_grams",)
+
+
+def repeats_bitwise(name, args, n: int = 3) -> bool:
+    """Whether n launches of the kernel on `args` give the same bits."""
+    kern = KERNELS[name][0]
+    outs = [kern(*args) for _ in range(n)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
+
+
+def gram_model_check(args) -> bool:
+    """Whether the data Gram kernel gives the bits of its plain fixed-order
+    model (gram_cuda.data_normal_fixed_order, on the CPU: index_add_ adds
+    there in index order) at the kernel's warps per block."""
+    idx, w, s2, delta, D = args
+    got = gram_cuda.data_normal(*args)
+    want = gram_cuda.data_normal_fixed_order(
+        idx.cpu(), w.cpu(), s2.cpu(), delta.cpu(), D,
+        gram_cuda.data_normal_warps(D))
+    return all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
 def measure(name, args, compare, tol, work, library) -> dict:
     """Compare the kernel with its plain version on `args` and time both
     (and the library call, if any)."""
@@ -668,21 +767,37 @@ def measure(name, args, compare, tol, work, library) -> dict:
     torch.cuda.synchronize()
     err = compare(out_k, out_p)
     del out_k, out_p
+    extra = {}
+    if name in REPEAT_REQUIRED + REPEAT_REPORTED:
+        same = repeats_bitwise(name, args)
+        print(f"kernel {name}: 3 launches bitwise equal: {same}", flush=True)
+        require(same or name not in REPEAT_REQUIRED,
+                f"{name}: 3 launches on the same inputs differ")
+        extra["bitwise_repeat"] = same
+    if name == "data_normal":
+        extra["matches_fixed_order_model"] = gram_model_check(args)
     ms = cuda_ms(lambda: kern(*args))
     h_ms = host_ms(lambda: kern(*args))
-    dev_ms = device_ms(lambda: kern(*args))
+    dev_ms, dev_kernels = device_ms(lambda: kern(*args))
     plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
     lib_ms = None if library is None else cuda_ms(library, iters=5)
-    extra = work_stats(name, args)
+    extra.update(work_stats(name, args))
     if name in ("warp_fused", "warp_fused_dlb"):
         extra["bound_ms_brute_force"] = warp_brute_force_ms(args)
+    elif name == "nn1_window_sweep":
+        extra["bound_ms_brute_force"] = corr_brute_force_ms(args)
+    elif name == "knn_gather":
+        extra["bound_ms_brute_force"] = knn_brute_force_ms(args)
     b_ms, b_by = bound_ms(*work)
     print(f"kernel {name}: max_abs_err {err} ({tol}); {ms:.4f} ms "
           f"(events), {h_ms:.4f} ms (host), {dev_ms} ms (device), plain "
           f"{plain_ms:.4f} ms, "
           f"library {lib_ms} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    if len(dev_kernels) > 1:
+        print(f"kernel {name} device ms by kernel: {json.dumps(dev_kernels)}",
+              flush=True)
     return dict(max_abs_err=err, ms=ms, host_ms=h_ms, device_ms=dev_ms,
-                plain_ms=plain_ms,
+                device_kernels_ms=dev_kernels, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
@@ -837,9 +952,10 @@ class Capture:
     """Around a main path: each wrapper's module attribute (the name every
     caller goes through) is replaced by a Shim that keeps, per kernel row,
     the arguments of the path's largest call (by the first argument's
-    element count, the last of equal ones) and calls the wrapper. The
-    arguments are kept by reference: the wrappers only read their
-    inputs."""
+    element count, the last of equal ones; for the 1-NN, per window width,
+    so that the escalate pass is kept beside the main pass) and calls the
+    wrapper. The arguments are kept by reference: the wrappers only read
+    their inputs."""
 
     def __init__(self):
         self.calls = {}
@@ -882,9 +998,10 @@ class Shim:
         args = bound.args
         name = ("warp_fused_dlb" if self.row == "warp_fused"
                 and args[7] == "dlb" else self.row)
+        key = (name, args[6] if name == "nn1_window_sweep" else None)
         size = args[0].numel()
-        if size >= self.calls.get(name, (-1,))[0]:
-            self.calls[name] = (size, args)
+        if size >= self.calls.get(key, (-1,))[0]:
+            self.calls[key] = (size, args)
         return self.wrapper(*a, **kw)
 
 
@@ -910,10 +1027,11 @@ def run_path(path: str, fn):
     require(not any(plain.values()),
             f"a plain version ran on a CUDA tensor on the {path} path: "
             f"{plain}")
-    require(set(cap.calls) == {n for n in KERNELS if got[n]},
+    require({n for n, _ in cap.calls} == {n for n in KERNELS if got[n]},
             f"{path}: captured {sorted(cap.calls)}, launched {got}")
-    for name in sorted(cap.calls):
-        args = cap.calls.pop(name)[1]
+    for key in sorted(cap.calls, key=str):
+        name = key[0]
+        args = cap.calls.pop(key)[1]
         shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
         print(f"{path}: {name} at its largest call, input shapes {shapes}",
               flush=True)

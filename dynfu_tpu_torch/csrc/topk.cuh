@@ -30,31 +30,13 @@ struct TopK {
     }
   }
 
-  // insertion into the sorted list; candidates arrive in ascending index
-  // order, so a tie never displaces an earlier (lower-index) entry
-  __device__ __forceinline__ void push(float dd, int j) {
-    if (dd != dd) dd = CUDART_INF_F;  // NaN ranks as +inf
-    if (!topk_less(dd, j, d[K - 1], i[K - 1])) return;
-#pragma unroll
-    for (int s = K - 1; s > 0; --s) {
-      if (topk_less(dd, j, d[s - 1], i[s - 1])) {
-        d[s] = d[s - 1];
-        i[s] = i[s - 1];
-      } else {
-        d[s] = dd;
-        i[s] = j;
-        return;
-      }
-    }
-    d[0] = dd;
-    i[0] = j;
-  }
-
-  // the same insertion without early exits, for candidate streams where
-  // most candidates enter the list: the new pair is swapped down the K
-  // places, so every lane runs the same steps and a warp does not diverge
+  // insertion into the sorted list, without early exits (most candidates
+  // of a pruned list enter it): the new pair is swapped down the K places,
+  // so every lane runs the same steps and a warp does not diverge;
+  // candidates arrive in ascending index order, so a tie never displaces
+  // an earlier (lower-index) entry
   __device__ __forceinline__ void push_swap(float dd, int j) {
-    if (dd != dd) dd = CUDART_INF_F;
+    if (dd != dd) dd = CUDART_INF_F;  // NaN ranks as +inf
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       const bool lt = topk_less(dd, j, d[s], i[s]);
@@ -82,34 +64,23 @@ __device__ __forceinline__ void stage_nodes(float4* s_nodes,
   __syncthreads();
 }
 
-// Squared distance in the plain version's operation order,
-// (px - qx)^2 + (py - qy)^2 + (pz - qz)^2 left to right (the build passes
-// -fmad=false, so nothing is fused into an FMA).
-template <int K>
-__device__ __forceinline__ void scan_nodes(TopK<K>& top, const float4* s_nodes,
-                                           int D, float qx, float qy,
-                                           float qz) {
-  top.init();
-  for (int j = 0; j < D; ++j) {
-    float4 p = s_nodes[j];
-    float dx = p.x - qx, dy = p.y - qy, dz = p.z - qz;
-    top.push(dx * dx + dy * dy + dz * dz, j);
-  }
-}
-
-// --- pruned selection (the fused warp) ------------------------------------
+// --- pruned selection (the fused warp and the k-NN) -----------------------
 //
-// A group of queries shares one candidate list. Its finite queries span the
-// box [lo, hi]; for node j, mind_j and maxd_j bound the squared distance
-// from any query in the box, computed from per-axis differences in
-// scan_nodes' operation order. Rounding is monotone, so mind_j <= d(q, j) <=
-// maxd_j holds for the computed distances too. UB = the k-th smallest
-// maxd_j: every query of the box has k nodes at d <= UB, so a node with
-// mind_j > UB is strictly farther than every query's k-th neighbour and can
-// never be selected, not even on a tie. Each query runs the TopK insertion
-// over the candidates {j : mind_j <= UB} only, in ascending index order, so
-// its selection equals scan_nodes' exactly. NaN distances rank as +inf
-// throughout: a NaN maxd counts as +inf, a NaN mind keeps the node.
+// The brute-force selection inserts every slot j, in ascending index order,
+// at the squared distance (px - qx)^2 + (py - qy)^2 + (pz - qz)^2 computed
+// left to right, in the plain version's operation order (the build passes
+// -fmad=false, so nothing is fused into an FMA). A group of queries shares
+// one candidate list instead. Its finite queries span the box [lo, hi]; for
+// node j, mind_j and maxd_j bound the squared distance from any query in
+// the box, computed from per-axis differences in that operation order.
+// Rounding is monotone, so mind_j <= d(q, j) <= maxd_j holds for the
+// computed distances too. UB = the k-th smallest maxd_j: every query of the
+// box has k nodes at d <= UB, so a node with mind_j > UB is strictly
+// farther than every query's k-th neighbour and can never be selected, not
+// even on a tie. Each query runs the TopK insertion over the candidates {j
+// : mind_j <= UB} only, in ascending index order, so its selection equals
+// the brute-force one exactly. NaN distances rank as +inf throughout: a NaN
+// maxd counts as +inf, a NaN mind keeps the node.
 //
 // Two levels: the block's box prunes all D slots (every thread bounding a
 // share of them), then each warp's box prunes the block's list; the rule
@@ -218,9 +189,8 @@ __device__ __forceinline__ void block_box(PruneShared& sh, bool fin, float3 v,
 // query; `v`: its coordinates. With nw = blockDim / 32, s_cand holds
 // nw (C + L) indices: the block's list in one region of C per warp, then
 // one list of L per warp (C and L below). A query with a non-finite
-// coordinate has every distance +inf, so
-// scan_nodes would select slots 0..k-1 at +inf: it gets exactly that, and
-// stays out of the boxes.
+// coordinate has every distance +inf, so the brute force would select
+// slots 0..k-1 at +inf: it gets exactly that, and stays out of the boxes.
 template <int K>
 __device__ __forceinline__ void scan_pruned(TopK<K>& top,
                                             const float4* s_nodes,
@@ -332,16 +302,24 @@ __device__ __forceinline__ void scan_pruned(TopK<K>& top,
   }
 }
 
-// dispatch a runtime k in 1..8 to the template instance
-#define DYNFU_DISPATCH_K(k, ...)                 \
-  switch (k) {                                   \
-    case 1: { constexpr int KK = 1; __VA_ARGS__; } break; \
-    case 2: { constexpr int KK = 2; __VA_ARGS__; } break; \
-    case 3: { constexpr int KK = 3; __VA_ARGS__; } break; \
-    case 4: { constexpr int KK = 4; __VA_ARGS__; } break; \
-    case 5: { constexpr int KK = 5; __VA_ARGS__; } break; \
-    case 6: { constexpr int KK = 6; __VA_ARGS__; } break; \
-    case 7: { constexpr int KK = 7; __VA_ARGS__; } break; \
-    case 8: { constexpr int KK = 8; __VA_ARGS__; } break; \
-    default: return (int)cudaErrorInvalidValue;          \
+// The largest block, a multiple of 32 of at most max_threads (<= 32 *
+// DYNFU_MAX_WARPS) threads, whose shared memory fits: `fixed` bytes of its
+// own static memory, the static PruneShared and, dynamic (*smem), the D
+// staged positions, the block's candidate list (a region of C slots per
+// warp) and one list of L per warp (scan_pruned). False if none does.
+static inline bool pruned_block(int D, int max_threads, size_t fixed,
+                                int* threads, size_t* smem) {
+  for (int t = max_threads; t >= 32; t -= 32) {
+    const int nw = t / 32;
+    const size_t C = (size_t)(((D + nw - 1) / nw + 31) & ~31);
+    const size_t L = (size_t)((D + 31) & ~31);
+    const size_t need =
+        (size_t)D * sizeof(float4) + nw * (C + L) * sizeof(short);
+    if (need + sizeof(PruneShared) + fixed <= DYNFU_MAX_SMEM) {
+      *threads = t;
+      *smem = need;
+      return true;
+    }
   }
+  return false;
+}

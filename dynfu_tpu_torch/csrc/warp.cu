@@ -180,24 +180,9 @@ __global__ void warp_fused_kernel(const float* __restrict__ q,
   ratio_out[qi] = ratio;
 }
 
-// The largest block, a multiple of 32 of at most 32 * DYNFU_MAX_WARPS
-// threads, whose shared memory fits: the static PruneShared and, dynamic,
-// the D staged positions, the block's candidate list (a region of C slots
-// per warp) and one list of L per warp (scan_pruned). False if none does.
+// 256 threads, or the most whose lists fit (pruned_block)
 static bool warp_block(int D, int* threads, size_t* smem) {
-  for (int t = 32 * DYNFU_MAX_WARPS; t >= 32; t -= 32) {
-    const int nw = t / 32;
-    const size_t C = (size_t)(((D + nw - 1) / nw + 31) & ~31);
-    const size_t L = (size_t)((D + 31) & ~31);
-    const size_t need =
-        (size_t)D * sizeof(float4) + nw * (C + L) * sizeof(short);
-    if (need + sizeof(PruneShared) <= DYNFU_MAX_SMEM) {
-      *threads = t;
-      *smem = need;
-      return true;
-    }
-  }
-  return false;
+  return pruned_block(D, 32 * DYNFU_MAX_WARPS, 0, threads, smem);
 }
 
 template <int K, bool DLB>

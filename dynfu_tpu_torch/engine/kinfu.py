@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dynfu_tpu_torch.engine.params import KinFuParams
+from dynfu_tpu_torch.kernels import resolve_device
 from dynfu_tpu_torch.ops import imgproc
 from dynfu_tpu_torch.rigid import icp
 from dynfu_tpu_torch.volume import tsdf as tv
@@ -38,16 +39,6 @@ def _stage(name: str):
     """A named range of the rigid frame for torch.profiler; near free when
     no profiler runs."""
     return torch.profiler.record_function(f"rigid/{name}")
-
-
-def resolve_device(device) -> torch.device:
-    """A torch.device; a CUDA device without a usable card raises — the
-    engines never fall back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
-                           "False")
-    return device
 
 
 class KinFu:

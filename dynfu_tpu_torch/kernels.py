@@ -42,17 +42,24 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dynfu_pack_triangles": [_P, _P, _P, _I, _I, _P, _P],
     "dynfu_knn_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "dynfu_knn_launch": [_I, _I, _P],
     "dynfu_warp_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
     "dynfu_warp_threads": [_I, _P],
     "dynfu_monomial_grams": [_P, _P, _P, _P, _P, _I, _I, _I,
                              _P, _P, _P, _P],
     "dynfu_monomial_grams_tiling": [_P],
-    "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P],
-    "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "dynfu_nn1_launch": [_I, _P],
+    "dynfu_data_normal_scratch": [_I, _I, _I],
+    "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "dynfu_data_normal_warps": [_I, _P],
     "dynfu_fetch_stencil": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
+
+# entry points that return something other than an error code
+RESTYPES = {"dynfu_data_normal_scratch": ctypes.c_longlong}
 
 _lib = None
 
@@ -119,7 +126,7 @@ def load() -> ctypes.CDLL:
         for name, args in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.dynfu_error_string.argtypes = [ctypes.c_int]
         lib.dynfu_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -147,6 +154,16 @@ def require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def resolve_device(device) -> torch.device:
+    """A torch.device; a CUDA device without a usable card raises — the
+    engines and constructors never fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but torch.cuda.is_available() is "
+                           "False")
+    return device
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:

@@ -1,15 +1,19 @@
 """k-NN against nodes with a feature fetch: CUDA wrapper and plain version.
 
 Replaces knn_gather_tpu (dynfu_tpu/ops/knn_pallas.py:73). Kernel source:
-csrc/knn.cu (selection routine shared with the fused warp: csrc/topk.cuh).
+csrc/knn.cu (the pruned selection shared with the fused warp:
+csrc/topk.cuh; ops/warp_cuda.group_candidates models its candidate lists).
 
 Selection rule, kernel and plain alike: ascending squared distance, ties to
 the lower node index; masked nodes sit at (FAR, FAR, FAR) — a huge finite
 distance — so they are chosen only when fewer than k nodes are valid (the
-fetched mask column then marks them invalid).
+fetched mask column then marks them invalid); a query with a non-finite
+coordinate gets slots 0..k-1 at +inf.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -45,6 +49,15 @@ def knn_gather_plain(queries, points, k: int, table, point_mask):
 
 
 knn_gather_plain.cuda_calls = 0
+
+
+def launch_info(Q: int, D: int) -> dict:
+    """The kernel's launch for Q queries and D slots, as its own launch code
+    picks it: threads per block, blocks and resident blocks per SM; on the
+    card only."""
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.load().dynfu_knn_launch(Q, D, out), "knn_launch")
+    return dict(threads=out[0], blocks=out[1], blocks_per_sm=out[2])
 
 
 def knn_gather(queries: torch.Tensor, points: torch.Tensor, k: int,

@@ -6,17 +6,20 @@ where it comes from.
 Runs `run_benchmark(dims, repeats=3)` `--runs` times in each of three
 settings, in one process and in this order:
 
-- "kernel": as shipped; the data Gram's kernel (csrc/gram.cu) adds its
-  terms with float32 atomics, in an order that varies from run to run;
+- "kernel": as shipped; the data Gram's kernel (csrc/gram.cu) sums every
+  entry in one fixed order, so it gives the same bits on every launch;
 - "kernel_det": the same under torch.use_deterministic_algorithms (with
   warn_only, so that an operation with no deterministic version warns and
   runs): every PyTorch operation that has a deterministic version uses it;
 - "plain_det": that mode, with the data Gram computed by its plain version
-  (`gram_cuda.data_normal_plain`, whose index_add_ is deterministic in it).
+  (`gram_cuda.data_normal_plain`, whose float32 index_add_ is deterministic
+  in it).
 
-If "plain_det" repeats itself to the bit and "kernel_det" does not, the
-data Gram's atomics are what varies. Prints one JSON line per run (the
-accuracy metrics and frame_ms), then the operations that warned.
+A setting whose runs differ has a source of run-to-run variation; "kernel"
+and "kernel_det" give one value if nothing on the path varies, and
+"plain_det" another (its float32 sums round differently). Prints one JSON
+line per run (the accuracy metrics and frame_ms), then the operations that
+warned.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ import torch
 
 from dynfu_tpu_torch.core import se3
 from dynfu_tpu_torch.core.camera import Intr
+from dynfu_tpu_torch.kernels import resolve_device
 
 # voxels per integrate chunk: bounds the float32 temporaries at large volumes
 _CHUNK_VOXELS = 1 << 24
@@ -70,8 +71,8 @@ class TsdfVolume(NamedTuple):
     pose_t: torch.Tensor  # (3,) float32
 
 
-def create(config: TsdfConfig, pose=None, device="cpu") -> TsdfVolume:
-    device = torch.device(device)
+def create(config: TsdfConfig, pose=None, device="cuda") -> TsdfVolume:
+    device = resolve_device(device)
     X, Y, Z = config.dims
     R, t = se3.identity(device) if pose is None else pose
     return TsdfVolume(

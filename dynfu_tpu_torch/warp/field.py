@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from dynfu_tpu_torch.core import dualquat as dq
+from dynfu_tpu_torch.kernels import resolve_device
 from dynfu_tpu_torch.ops import knn, knn_cuda, warp_cuda
 
 KNN = 8  # warp_field.hpp:27
@@ -47,8 +48,9 @@ class WarpField(NamedTuple):
 
 
 def init_warpfield(positions, dqs=None, weights=None,
-                   capacity: int | None = None, device="cpu") -> WarpField:
+                   capacity: int | None = None, device="cuda") -> WarpField:
     f32 = torch.float32
+    device = resolve_device(device)
     positions = torch.as_tensor(positions, dtype=f32, device=device)
     n = positions.shape[0]
     capacity = capacity or n

@@ -171,7 +171,8 @@ def _sphere_volume(dims=64):
     tcfg = ttv.TsdfConfig(**cfg)
     depth = sphere_depth((0.0, 0.0, 0.75), 0.22, H, W, *INTR)
     dists = np.array(jimg.compute_dists(jnp.asarray(depth), JIntr(*INTR)))
-    tv = ttv.create(tcfg, (torch.eye(3), torch.as_tensor(VOL_T)))
+    tv = ttv.create(tcfg, (torch.eye(3), torch.as_tensor(VOL_T)),
+                    device="cpu")
     tv = ttv.integrate(tv, torch.as_tensor(dists), IDENT, TIntr(*INTR), tcfg)
     f, w = tv.tsdf.numpy(), tv.weight.numpy()
     return f, w, jtv.TsdfConfig(**cfg), tcfg

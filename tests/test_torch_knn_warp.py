@@ -1,15 +1,16 @@
 """PyTorch port vs JAX reference: k-NN with feature fetch, the windowed
 1-NN correspondence and its tiers, the fused DQB warp, the unsupported
 mask and node insertion. Seeded numpy inputs, CPU; Pallas kernels run in
-interpret mode, as the JAX package's own tests run them. The fused warp's
-candidate rule (a plain model of the kernel's pruned selection) is held
-against the brute-force selection.
+interpret mode, as the JAX package's own tests run them. The candidate rule
+of the fused warp and the k-NN (a plain model of their pruned selection) is
+held against the brute-force selection, and the 1-NN's sub-tile pruning
+(a plain model of the kernel's sweep) against the plain sweep.
 
 The tests marked `cuda` hold the k-NN, warp and 1-NN CUDA kernels against
 their plain versions at edge-case shapes (odd sizes, fewer valid nodes
-than k, all-inf and NaN rows, ragged sub-tiles, an empty window, spatially
-sorted queries that the warp prunes for, D = 8192); they skip without a
-card."""
+than k, all-inf and NaN rows, ragged sub-tiles, an empty window, equal
+distances, scattered queries, spatially sorted queries that the kernels
+prune for, D = 8192); they skip without a card."""
 
 import functools
 
@@ -279,6 +280,76 @@ def test_pruned_selection_equals_brute_force(case, D, k):
         assert float(cand.sum(1)[has_box].double().mean()) < D / 4
 
 
+@pytest.mark.parametrize("case", ["sorted", "few_valid", "nonfinite"])
+def test_knn_pruned_selection_equals_select_k(case):
+    """The k-NN kernel's block sizes below 256 (it halves them at small Q):
+    the pruned selection equals select_k, fewer valid nodes than k and
+    non-finite queries included."""
+    q, pos, mask = (_t(a) for a in _prune_inputs(case, 1024, 8, Q=512))
+    want = knn_cuda.select_k(q, pos, mask, 8)
+    for threads in (64, 128):
+        got = warp_cuda.pruned_select(q, pos, mask, 8, threads)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+NN1_CASES = ["sorted", "ties", "big", "empty_window", "scattered", "ragged"]
+
+
+def _nn1_inputs(case, dev="cpu", F=5):
+    """The 1-NN sweep's arguments through the port's window placement:
+    queries near points on a sphere, both x-sorted, and the case's twist —
+    lattice points and queries (equal distances at different indices),
+    BIG-masked points and queries, a first window of BIG points only,
+    shuffled queries in a wide window (the escalate pass), a window that
+    is not a multiple of the sub-tile."""
+    rng = np.random.default_rng(len(case))
+    P, Q = 3000, 4096
+    u = rng.normal(size=(P, 3))
+    pts = 0.5 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    qs = pts[rng.integers(0, P, Q)] + rng.normal(0, 0.01, (Q, 3))
+    W = {"scattered": 2048, "ragged": 1000}.get(case, 1024)
+    if case == "ties":
+        pts = np.round(pts * 8) / 8
+        qs = np.round(qs * 16) / 16
+    pts = pts.astype(np.float32)
+    qs = qs.astype(np.float32)
+    if case in ("big", "empty_window"):
+        pts[rng.random(P) < 0.2] = BIG
+        qs[rng.random(Q) < 0.1] = BIG
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    qs = qs[np.argsort(qs[:, 0], kind="stable")]
+    if case == "empty_window":
+        pts[:W] = BIG
+    if case == "scattered":
+        qs = qs[rng.permutation(Q)]
+    qsP, psP, lo_el, pre, suf, W = tknn.window_placement(
+        torch.as_tensor(qs, device=dev), torch.as_tensor(pts, device=dev), W)
+    if case == "empty_window":
+        lo_el[0] = 0
+    pay = torch.as_tensor(rng.normal(size=(psP.shape[0], F)),
+                          dtype=torch.float32, device=dev)
+    return qsP, psP, lo_el, pre, suf, 2048, W, pay
+
+
+@pytest.mark.parametrize("case", NN1_CASES)
+def test_nn1_pruned_sweep_equals_plain(case):
+    """The plain model of the 1-NN kernel's sub-tile pruning, with one warp
+    per query group and with the visits shared by 2 and 4 warps, fetches
+    the same rows and certificates as the plain sweep; on sorted queries a
+    group scans few of the window's sub-tiles."""
+    args = _nn1_inputs(case)
+    want = corr_cuda.nn1_window_sweep_plain(*args)
+    for split in (1, 2, 4):
+        vals, exact, scanned, has = corr_cuda.pruned_sweep(*args,
+                                                           split=split)
+        assert torch.equal(exact, want[1])
+        assert torch.equal(vals, want[0])
+        if case == "sorted":
+            assert float(scanned[has].sum(1).double().mean()) < 4 + split
+    assert 0 < int(want[1].sum()) < want[1].numel()
+
+
 @pytest.fixture
 def dev():
     """The CUDA device; tests that take it are marked `cuda` and skip
@@ -317,6 +388,34 @@ def test_knn_gather_kernel_equals_plain(dev, k, D, n_valid):
     q = _edge_queries(rng, 333, dev)
     got = knn_cuda.knn_gather(q, pos, k, table, mask)
     want = knn_cuda.knn_gather_plain(q, pos, k, table, mask)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [100, 1024, 70000])
+@pytest.mark.parametrize("case,D,k", [(c, 1024, 8) for c in PRUNE_CASES]
+                         + [("few_valid", 37, 8), ("nonfinite", 37, 1),
+                            ("sorted", 8192, 8)])
+def test_knn_gather_pruned_kernel_equals_plain(dev, case, D, k, Q):
+    """The pruned selection at the block the kernel picks (fewer threads at
+    small Q and at D = 8192): indices, distances and features bit for
+    bit."""
+    q, pos, mask = _prune_inputs(case, D, k, Q=min(Q, 1024))
+    q = np.resize(q, (Q, 3))  # repeated queries: several blocks per shape
+    rng = np.random.default_rng(D + k)
+    table = rng.normal(size=(D, 13)).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (q, pos)]
+    tab, m = torch.as_tensor(table, device=dev), torch.as_tensor(mask,
+                                                                 device=dev)
+    threads = knn_cuda.launch_info(Q, D)["threads"]
+    if Q <= 1024:  # fewer than two blocks per SM at 64 threads
+        assert threads == 32
+    elif D <= 1024:
+        assert threads == 256
+    got = knn_cuda.knn_gather(*args, k, tab, m)
+    want = knn_cuda.knn_gather_plain(*args, k, tab, m)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -367,6 +466,21 @@ def test_window_sweep_kernel_equals_plain(dev, W, F):
     got = corr_cuda.nn1_window_sweep(qsP, psP, lo_el, pre, suf, 2048, W, pay)
     want = corr_cuda.nn1_window_sweep_plain(qsP, psP, lo_el, pre, suf, 2048,
                                             W, pay)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NN1_CASES)
+def test_window_sweep_pruned_kernel_equals_plain(dev, case):
+    """Rows and certificates bit for bit on the pruning model's adversarial
+    inputs (4096 queries: 4 warps share each group's visits)."""
+    args = _nn1_inputs(case, dev, F=22)
+    launch = corr_cuda.launch_info(args[0].shape[0])
+    assert launch["sub"] == corr_cuda.SUB and launch["split"] == 4
+    got = corr_cuda.nn1_window_sweep(*args)
+    want = corr_cuda.nn1_window_sweep_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])

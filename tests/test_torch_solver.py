@@ -1,7 +1,10 @@
 """PyTorch port vs JAX reference: the GN data-term Gram and the warp solve
 on the reference's Opt fixtures (tests/test_solver_parity.py), on the CPU.
-The test marked `cuda` holds the Gram kernel against its plain version (it
-skips without a card)."""
+A plain model of the Gram kernel's fixed summation order is held against
+the plain version and against a sequential Python sum. The tests marked
+`cuda` hold the Gram kernel against its plain version, against itself over
+three launches and against the fixed-order model (they skip without a
+card)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,12 +57,75 @@ def test_build_graphs_matches_jax():
     """Data and reg graphs index for index, masked node slots included
     (knn_brute keeps the source's distance form and tie rule)."""
     jwf = jfield.init_warpfield(ALL_NODES, weights=DG_W, capacity=20)
-    twf = tfield.init_warpfield(ALL_NODES, weights=DG_W, capacity=20)
+    twf = tfield.init_warpfield(ALL_NODES, weights=DG_W, capacity=20,
+                               device="cpu")
     verts = np.asarray(SRC5 + TGT5B, np.float32)
     jd, jr = jgn.build_graphs(jwf, jnp.asarray(verts))
     td, tr = tgn.build_graphs(twf, torch.as_tensor(verts))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+
+
+def _gram_inputs(seed, N, K, D, repeated=True):
+    """Rows with out-of-range and (if `repeated`) repeated indices, zero
+    weights and zero s2 (skipped rows)."""
+    rng = np.random.default_rng(seed)
+    if repeated:
+        idx = rng.integers(-1, D + 1, (N, K))
+    else:
+        idx = np.argsort(rng.random((N, D)), axis=1)[:, :K]
+    w = rng.random((N, K), dtype=np.float32)
+    w[rng.random((N, K)) < 0.1] = 0.0
+    s2 = rng.random(N, dtype=np.float32)
+    s2[::3] = 0.0
+    delta = rng.normal(size=(N, 3)).astype(np.float32)
+    return idx.astype(np.int32), w, s2, delta
+
+
+def _sequential_gram(idx, w, s2, delta, D, warps):
+    """The kernel's order in plain Python: each node's entries in (row,
+    slot) order, cut into `warps` equal shares, each summed in float64
+    entry by entry (a row's slots holding one node summed first, in slot
+    order); the shares summed in order and rounded once."""
+    N, K = idx.shape
+    acc = np.zeros((warps, D, D + 3))
+    bucket = [[] for _ in range(D)]
+    for n in range(N):
+        for r in range(K):
+            if 0 <= idx[n, r] < D and s2[n] != 0 and w[n, r] != 0:
+                bucket[idx[n, r]].append((n, r))
+    for i, entries in enumerate(bucket):
+        for o, (n, r) in enumerate(entries):
+            g = max(g for g in range(warps) if len(entries) * g // warps <= o)
+            ws = float(s2[n]) * float(w[n, r])
+            for j in dict.fromkeys(idx[n]):  # distinct nodes, in slot order
+                if 0 <= j < D:
+                    acc[g, i, j] += sum(ws * float(w[n, s]) for s in range(K)
+                                        if idx[n, s] == j)
+            for c in range(3):
+                acc[g, i, D + c] += ws * float(delta[n, c])
+    tot = acc[0]
+    for g in range(1, warps):
+        tot = tot + acc[g]
+    tot = tot.astype(np.float32)
+    return tot[:, :D], tot[:, D:]
+
+
+@pytest.mark.parametrize("warps", [1, 3, 4])
+def test_gram_fixed_order_model(warps):
+    """The plain model of the kernel's fixed summation order: within 1e-5
+    of max |A| (resp. max |b|) of data_normal_plain, the same bits on a
+    second call, and equal to the order written out in plain Python."""
+    args = [torch.as_tensor(a) for a in _gram_inputs(warps, 400, 8, 30)]
+    A, b = gram_cuda.data_normal_fixed_order(*args, 30, warps)
+    A0, b0 = gram_cuda.data_normal_plain(*args, 30)
+    torch.testing.assert_close(A, A0, rtol=0, atol=1e-5 * float(A0.abs().max()))
+    torch.testing.assert_close(b, b0, rtol=0, atol=1e-5 * float(b0.abs().max()))
+    A1, b1 = gram_cuda.data_normal_fixed_order(*args, 30, warps)
+    assert torch.equal(A, A1) and torch.equal(b, b1)
+    As, bs = _sequential_gram(*(a.numpy() for a in args), 30, warps)
+    np.testing.assert_array_equal(A.numpy(), As)
+    np.testing.assert_array_equal(b.numpy(), bs)
 
 
 SOLVE_KW = dict(tukey_offset=TUKEY_OFFSET, psi_data=PSI_DATA,
@@ -114,7 +180,8 @@ def test_solve_matches_reference_fixture(name):
     iterations as the JAX solve on the same inputs, with the same costs."""
     nodes, steps = SCENARIOS[name]
     jwf = jfield.init_warpfield(nodes, weights=DG_W, capacity=D_PAD)
-    twf = tfield.init_warpfield(nodes, weights=DG_W, capacity=D_PAD)
+    twf = tfield.init_warpfield(nodes, weights=DG_W, capacity=D_PAD,
+                                device="cpu")
     first_src = None
     for src, tgt, chk_src, chk_tgt in steps:
         if isinstance(src, str):  # re-warp the first source (sequential)
@@ -158,7 +225,8 @@ def test_solve_with_graph_and_update_gates_matches_jax():
     near0 = np.linalg.norm(verts - nodes[0], axis=1) < 0.08
     live[near0] += np.float32(0.03)
     jwf = jfield.init_warpfield(nodes, weights=0.15, capacity=16)
-    twf = tfield.init_warpfield(nodes, weights=0.15, capacity=16)
+    twf = tfield.init_warpfield(nodes, weights=0.15, capacity=16,
+                                device="cpu")
     idx, _, n_pos, _, n_w, n_valid = jfield.neighbor_features(
         jwf, jnp.asarray(verts), 8)
     kw = dict(SOLVE_KW, psi_data=1.0, min_update=0.002, max_update=0.02)
@@ -188,9 +256,9 @@ def dev():
 
 @pytest.mark.cuda
 def test_gram_kernel_equals_plain(dev):
-    """Within 1e-5 of max |A| and max |b| (float32 atomics sum in a varying
-    order), with out-of-range indices skipped and repeated indices in a
-    row."""
+    """Within 1e-5 of max |A| and max |b| (the kernel sums in float64, the
+    plain version in float32), with out-of-range indices skipped and
+    repeated indices in a row."""
     rng = np.random.default_rng(7)
     N, K, D = 5001, 8, 100
     idx = rng.integers(-1, D + 1, (N, K)).astype(np.int32)
@@ -204,3 +272,26 @@ def test_gram_kernel_equals_plain(dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(A, A0, rtol=0, atol=1e-5 * float(A0.abs().max()))
     torch.testing.assert_close(b, b0, rtol=0, atol=1e-5 * float(b0.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,D,repeated", [(5001, 8, 100, True),
+                                            (0, 8, 17, False),
+                                            (3000, 3, 64, True),
+                                            (49152, 8, 1024, False),
+                                            (4000, 8, 3000, False)])
+def test_gram_kernel_fixed_order(dev, N, K, D, repeated):
+    """The same bits over three launches, and the bits of the plain
+    fixed-order model (on the CPU) at the kernel's warps per block; empty
+    rows of A (nodes without an entry) are zeros."""
+    args = [torch.as_tensor(a, device=dev)
+            for a in _gram_inputs(D + K, N, K, D, repeated)]
+    outs = [gram_cuda.data_normal(*args, D) for _ in range(3)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
+    warps = gram_cuda.data_normal_warps(D)
+    assert 1 <= warps <= 4
+    A, b = gram_cuda.data_normal_fixed_order(*(a.cpu() for a in args), D,
+                                             warps)
+    assert torch.equal(outs[0][0].cpu(), A) and torch.equal(outs[0][1].cpu(), b)

@@ -47,7 +47,8 @@ def _jvol(cfg):
 
 
 def _tvol(cfg):
-    return ttv.create(cfg, (torch.eye(3), torch.as_tensor(VOL_T)))
+    return ttv.create(cfg, (torch.eye(3), torch.as_tensor(VOL_T)),
+                      device="cpu")
 
 
 def _assert_vol_equal(jv, tv):
