@@ -18,18 +18,18 @@
    stencil exactly, NaN positions included; floats within the stated
    tolerance) and times each: CUDA events over back-to-back calls (ms), the
    host's time per call without waiting for the card (host_ms), the
-   profiler's device time per call (device_ms), the plain version
-   (plain_ms) and, where one PyTorch call computes the same function, that
+   profiler's device time per call (device_ms), for the Grams and the pack
+   the time per call replayed from a CUDA graph (graph_ms: no host time in
+   it), the plain version (plain_ms) and, where one PyTorch call computes the same function, that
    call (library_ms); bound_ms is the least time the card could take (the
    larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
    of float32), from this run's inputs. The two warp rows and the k-NN also
-   report the candidates per warp, the 1-NN the sub-tiles each warp
-   scanned, and the monomial Grams the segments that took the global-atomic
-   route, from the plain models of the kernels' rules at the launch shape
+   report the candidates per warp and the 1-NN the sub-tiles each warp
+   scanned, from the plain models of the kernels' rules at the launch shape
    the kernel's own code picks (with the blocks and waves of the k-NN and
-   the 1-NN). The data Gram must give the same bits over three launches
-   (and is compared with its plain fixed-order model); whether the
-   monomial Grams do is printed;
+   the 1-NN); the two Grams report their rows, chunks and neighbours per
+   node. Each Gram must give the same bits over three launches and the bits
+   of its plain fixed-order model (gram_cuda.gram_fixed_order);
 4. small-input checks: three frames of a 64^3 scene in parity mode, in
    SE(3) fusion mode and through rigid KinFu (120x160) on the card, each
    against the same engine on the CPU;
@@ -38,9 +38,10 @@
    version run on a CUDA tensor; after each, every kernel the path launched
    is held against its plain version, with the tolerances above, at the
    path's own largest call (its arguments captured during the run; for
-   the 1-NN, the main and the escalate pass; these checks, with the
-   candidate, sub-tile and segment counts, are listed under "at_paths" in
-   each kernel's row):
+   the 1-NN, the main and the escalate pass; these checks, the Grams' bits
+   repeated and equal to their model among them, with the candidate,
+   sub-tile and per-node counts, are listed under "at_paths" in each
+   kernel's row):
    - parity 128^3: run_benchmark(128, repeats=3); zero drops, the accuracy
      bounds;
    - SE(3) fusion 512^3: run_fusion_benchmark(512, rotations=True); no
@@ -266,6 +267,37 @@ def device_ms(fn, iters: int = 20, tries: int = 6):
     return None, {}
 
 
+# rows also timed by replaying a CUDA graph of their launches (graph_ms)
+GRAPH_TIMED = ("data_normal", "monomial_grams", "pack_triangles")
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Time per call of fn() replayed from a CUDA graph of `iters` calls,
+    by CUDA events: the device time with no host time per call in it (the
+    profiler drops events late in a run)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (reps * iters)
+
+
 def bound_ms(nbytes: float, flops: float):
     """(least time in ms, "bytes" or "operations")."""
     tb, tf = nbytes / PEAK_BYTES, flops / PEAK_F32
@@ -386,15 +418,20 @@ def cmp_exact(name):
 
 
 def pack_case(args):
-    """The cells' triangles, offsets and counts in, the stream out; the
-    library call compacts the same rows in order by one boolean index."""
-    tris, _, n_tris, max_tris = args
+    """The bound's bytes are this run's: the rows that land in the stream
+    (each cell's first n_tris rows, those below max_tris) read once, the
+    offsets and counts read once and the stream written once; the library
+    call compacts the same rows in order by one boolean index."""
+    tris, offs, n_tris, max_tris = args
     M = tris.shape[0]
     rows = (torch.arange(5, device=DEV)[None, :]
             < n_tris[:, None]).reshape(-1)
+    live = torch.clamp(torch.minimum(n_tris.long(), max_tris - offs.long()),
+                       min=0)
     flat = tris.reshape(M * 5, 9)
     return (args, cmp_exact("pack_triangles"), "exact",
-            (M * 45 * 4 + 2 * M * 4 + max_tris * 36, 0), lambda: flat[rows])
+            (int(live.sum()) * 36 + 2 * M * 4 + max_tris * 36, 0),
+            lambda: flat[rows])
 
 
 def knn_case(args):
@@ -552,7 +589,8 @@ def mono_case(args):
     def cmp_mono(a, b):
         errs = [max_abs(x, z) / max(float(z.abs().max()), 1e-30)
                 for x, z in zip(a, b)]
-        # float32 atomics sum in a varying order: relative tolerance
+        # the kernel sums in float64, the plain version in float32:
+        # relative tolerance
         require(max(errs) <= 1e-5, f"monomial_grams relative errors {errs}")
         return max(max_abs(x, z) for x, z in zip(a, b))
     return (args, cmp_mono, "<= 1e-5 relative to max |B|, |Bu|, |Bw|",
@@ -684,8 +722,8 @@ def work_stats(name, args) -> dict:
     the plain models of its rules, and its launch shape as the kernel's own
     code picks it: the candidates per warp (warps with a finite query) of
     the warps and the k-NN; the 1-NN's sub-tiles scanned per warp (warps
-    with a live query); the monomial Grams' segments, their distinct nodes,
-    and the segments and rows that took the global-atomic route."""
+    with a live query); the Grams' rows, marked chunks and neighbours per
+    node holding a row (passes of 32 neighbours), and warps per block."""
     if name in ("warp_fused", "warp_fused_dlb", "knn_gather"):
         if name == "knn_gather":
             q, pos, k, _, mask = args
@@ -716,25 +754,23 @@ def work_stats(name, args) -> dict:
                   waves=waves(launch["blocks"], launch["blocks_per_sm"]),
                   **launch)
         del vals, exact, got
-    elif name == "monomial_grams":
-        idx, w, s2, _, _, D = args
-        rows, u, min_rows = gram_cuda.mono_tiling()
-        segs = gram_cuda.mono_segments(idx, w, s2, D, rows, u, min_rows)
-        glob = [nr for _, nr, n in segs if n > u]
-        st = dict(rows=rows, u=u, min_rows=min_rows,
-                  tiles=-(-idx.shape[0] // rows), segments=len(segs),
-                  global_segments=len(glob), global_rows=sum(glob),
-                  distinct=quantiles(torch.tensor([n for *_, n in segs])))
+    elif name in ("data_normal", "monomial_grams"):
+        idx, w, s2, D = args[0], args[1], args[2], args[-1]
+        mono = name == "monomial_grams"
+        work = gram_cuda.gather_work(idx, w, s2, D, mono)
+        held = work["rows"] > 0
+        st = dict(nodes_held=int(held.sum()),
+                  warps=gram_cuda.gram_warps(idx.shape[0], D, mono),
+                  **{k: quantiles(v[held]) for k, v in work.items()})
     else:
         return {}
     print(f"kernel {name} work: {json.dumps(st)}", flush=True)
     return st
 
 
-# rows whose kernel must give the same bits on every launch, and a row
-# whose repeatability is only reported (its atomics sum in a varying order)
-REPEAT_REQUIRED = ("data_normal",)
-REPEAT_REPORTED = ("monomial_grams",)
+# rows whose kernel must give the same bits on every launch, and the bits
+# of its plain fixed-order model
+REPEAT_REQUIRED = ("data_normal", "monomial_grams")
 
 
 def repeats_bitwise(name, args, n: int = 3) -> bool:
@@ -745,15 +781,20 @@ def repeats_bitwise(name, args, n: int = 3) -> bool:
     return all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
 
 
-def gram_model_check(args) -> bool:
-    """Whether the data Gram kernel gives the bits of its plain fixed-order
-    model (gram_cuda.data_normal_fixed_order, on the CPU: index_add_ adds
-    there in index order) at the kernel's warps per block."""
-    idx, w, s2, delta, D = args
-    got = gram_cuda.data_normal(*args)
-    want = gram_cuda.data_normal_fixed_order(
+def gram_model_check(name, args) -> bool:
+    """Whether a Gram kernel gives the bits of its plain fixed-order model
+    (gram_cuda.gram_fixed_order, on the CPU: index_add_ adds there in index
+    order) at the kernel's warps per block."""
+    got = KERNELS[name][0](*args)
+    if name == "data_normal":
+        idx, w, s2, delta, D = args
+        y = None
+    else:
+        idx, w, s2, y, delta, D = args
+        y = y.cpu()
+    want = gram_cuda.gram_fixed_order(
         idx.cpu(), w.cpu(), s2.cpu(), delta.cpu(), D,
-        gram_cuda.data_normal_warps(D))
+        gram_cuda.gram_warps(idx.shape[0], D, y is not None), y=y)
     return all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
@@ -768,17 +809,18 @@ def measure(name, args, compare, tol, work, library) -> dict:
     err = compare(out_k, out_p)
     del out_k, out_p
     extra = {}
-    if name in REPEAT_REQUIRED + REPEAT_REPORTED:
+    if name in REPEAT_REQUIRED:
         same = repeats_bitwise(name, args)
-        print(f"kernel {name}: 3 launches bitwise equal: {same}", flush=True)
-        require(same or name not in REPEAT_REQUIRED,
-                f"{name}: 3 launches on the same inputs differ")
-        extra["bitwise_repeat"] = same
-    if name == "data_normal":
-        extra["matches_fixed_order_model"] = gram_model_check(args)
+        model = gram_model_check(name, args)
+        print(f"kernel {name}: 3 launches bitwise equal: {same}; equal to "
+              f"its fixed-order model: {model}", flush=True)
+        require(same, f"{name}: 3 launches on the same inputs differ")
+        require(model, f"{name}: differs from its fixed-order model")
+        extra.update(bitwise_repeat=same, matches_fixed_order_model=model)
     ms = cuda_ms(lambda: kern(*args))
     h_ms = host_ms(lambda: kern(*args))
     dev_ms, dev_kernels = device_ms(lambda: kern(*args))
+    g_ms = graph_ms(lambda: kern(*args)) if name in GRAPH_TIMED else None
     plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
     lib_ms = None if library is None else cuda_ms(library, iters=5)
     extra.update(work_stats(name, args))
@@ -790,14 +832,16 @@ def measure(name, args, compare, tol, work, library) -> dict:
         extra["bound_ms_brute_force"] = knn_brute_force_ms(args)
     b_ms, b_by = bound_ms(*work)
     print(f"kernel {name}: max_abs_err {err} ({tol}); {ms:.4f} ms "
-          f"(events), {h_ms:.4f} ms (host), {dev_ms} ms (device), plain "
+          f"(events), {h_ms:.4f} ms (host), {dev_ms} ms (device), "
+          f"{g_ms} ms (graph), plain "
           f"{plain_ms:.4f} ms, "
           f"library {lib_ms} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
     if len(dev_kernels) > 1:
         print(f"kernel {name} device ms by kernel: {json.dumps(dev_kernels)}",
               flush=True)
     return dict(max_abs_err=err, ms=ms, host_ms=h_ms, device_ms=dev_ms,
-                device_kernels_ms=dev_kernels, plain_ms=plain_ms,
+                device_kernels_ms=dev_kernels, graph_ms=g_ms,
+                plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
@@ -865,8 +909,9 @@ def small_input_check():
     require(torch.isfinite(vg[mg]).all(), "non-finite warped vertices")
     require(torch.equal(mg, mc) and ng == nc, "card and CPU node sets differ")
     err = float((vg - vc)[mg].abs().max())
-    # f32 roundoff of the Gram atomics and of the card's exp/sqrt through
-    # three solves: well under a tenth of a millimetre
+    # the card's float64-summed Gram against the CPU's float32 one, and the
+    # card's exp/sqrt, through three solves: well under a tenth of a
+    # millimetre
     require(err <= 1e-4, f"card vs CPU warped cloud differs by {err} m")
     print(f"small-input check (parity): card vs CPU max |dv| {err:.3g} m, "
           f"{ng} nodes", flush=True)

@@ -47,19 +47,18 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P],
     "dynfu_warp_threads": [_I, _P],
     "dynfu_monomial_grams": [_P, _P, _P, _P, _P, _I, _I, _I,
-                             _P, _P, _P, _P],
-    "dynfu_monomial_grams_tiling": [_P],
+                             _P, _P, _P, _P, _P],
     "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     "dynfu_nn1_launch": [_I, _P],
-    "dynfu_data_normal_scratch": [_I, _I, _I],
+    "dynfu_gram_scratch": [_I, _I],
+    "dynfu_gram_warps": [_I, _I, _I, _P],
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "dynfu_data_normal_warps": [_I, _P],
     "dynfu_fetch_stencil": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 # entry points that return something other than an error code
-RESTYPES = {"dynfu_data_normal_scratch": ctypes.c_longlong}
+RESTYPES = {"dynfu_gram_scratch": ctypes.c_longlong}
 
 _lib = None
 

@@ -6,15 +6,11 @@ replaces monomial_grams_tpu (gram_pallas.py:184; kernel csrc/mono_gram.cu),
 the SE(3) solve's ten monomial Grams and two rhs. The TPU kernels' 3-pass
 bf16 split is a TPU device, not carried over.
 
-The data Gram kernel sums every entry in one fixed order, in float64, and
-rounds once to float32, so it gives the same bits on every launch;
-`data_normal_fixed_order` is a plain model of that order, for the tests
-(on no main path). `data_normal_plain` sums in float32 in index_add_'s
-order, so the two agree to float32 roundoff. The monomial-Gram kernel's
-atomics sum in a varying order: it agrees with its plain version to float32
-roundoff, not bit for bit. It accumulates segments of rows in shared
-memory; `mono_segments` is a plain model of how it cuts them (for the tests
-and chip_smoke.py, on no main path).
+Both kernels sum every entry in one fixed order (csrc/gram_gather.cuh), in
+float64, and round once to float32, so they give the same bits on every
+launch; `gram_fixed_order` is a plain model of that order, for the tests
+and chip_smoke.py (on no main path). The plain versions sum in float32 in
+index_add_'s order, so kernel and plain version agree to float32 roundoff.
 """
 
 from __future__ import annotations
@@ -47,69 +43,161 @@ def data_normal_plain(data_idx, data_w, s2, delta, D: int):
 data_normal_plain.cuda_calls = 0
 
 
-def data_normal_fixed_order(data_idx, data_w, s2, delta, D: int,
-                            warps: int = 4):
-    """The data Gram summed as the kernel sums it: each entry (row n, slot
-    r) with idx in [0, D) and s2[n], w[n, r] nonzero goes to node idx's
-    bucket, in ascending (n, r); the bucket is cut into `warps` equal
-    contiguous shares; each share adds, entry by entry in float64, s2 w_r
-    w_r' for each node r' of the row (the sum over the row's slots holding
-    it, in slot order) and s2 w_r delta; the shares are summed in order and
-    rounded once to float32. On the CPU index_add_ adds in index order."""
+CHUNK = 32  # rows per chunk of a node's mask (csrc/gram_gather.cuh)
+
+
+def _sqrt_f32(s2):
+    """sqrt(max(s2, 0)) correctly rounded to float32, as the kernels' sqrtf
+    gives it (torch's float32 sqrt on the CPU can be an ulp off)."""
+    return torch.sqrt(torch.clamp_min(s2, 0.0).to(torch.float64)).to(
+        torch.float32)
+
+
+def _row_weights(data_idx, data_w, s2, D: int, mono: bool):
+    """Per slot: live (in [0, D), nonzero weight), first (the row's first
+    live slot of its node) and v, float64: the sum of the weights of the
+    row's live slots holding that node, in slot order (from the first)."""
+    K = data_idx.shape[1]
+    idx = data_idx.to(torch.int64)
+    if mono:
+        ws = _sqrt_f32(s2)[:, None] * data_w
+        live = (idx >= 0) & (idx < D) & (ws != 0)
+    else:
+        ws = data_w
+        live = (idx >= 0) & (idx < D) & (s2[:, None] != 0) & (data_w != 0)
+    wt = ws.to(torch.float64)
+    same = live[:, :, None] & live[:, None, :] & (idx[:, :, None]
+                                                  == idx[:, None, :])
+    first = live & ~torch.tril(same, diagonal=-1).any(2)
+    slot = torch.arange(K, device=idx.device)
+    v = wt
+    for r2 in range(K):
+        later = same[:, :, r2] & (slot < r2)[None, :]
+        v = torch.where(later, v + wt[:, r2:r2 + 1], v)
+    return idx, live, first, v
+
+
+def _shares(idx, first, D: int, warps: int):
+    """(N, K) share of each first slot: its node's marked chunks (those
+    holding a row of it), cut by rank into `warps` equal contiguous
+    shares."""
+    N = idx.shape[0]
+    dev = idx.device
+    n_chunks = max(1, -(-N // CHUNK))
+    rows = torch.arange(N, device=dev)[:, None].expand_as(idx)
+    key = torch.where(first, idx * n_chunks + rows // CHUNK, -1)
+    sel = key.reshape(-1) >= 0
+    uniq, inv = torch.unique(key.reshape(-1)[sel], return_inverse=True)
+    node = uniq // n_chunks
+    n_ch = torch.bincount(node, minlength=D)
+    start = torch.cumsum(n_ch, 0) - n_ch
+    rank = torch.arange(uniq.numel(), device=dev) - start[node]
+    share = sum(((n_ch[node] * g // warps) <= rank).to(torch.int64)
+                for g in range(1, warps))
+    out = torch.zeros(idx.numel(), dtype=torch.int64, device=dev)
+    out[sel] = share[inv] if warps > 1 else 0
+    return out.reshape(idx.shape)
+
+
+def gram_fixed_order(data_idx, data_w, s2, delta, D: int, warps: int,
+                     y=None):
+    """A Gram summed as csrc/gram_gather.cuh sums it: the data Gram (y is
+    None) -> (A (D, D), b (D, 3)), or the monomial Grams -> (B (10, D, D),
+    Bu (D, 3), Bw (D, 3)). Each row's live slots holding one node are merged
+    (their weights summed in float64 in slot order: v); entry (i, j) adds,
+    over the rows holding i and j, s2 (v_i v_j) (data) or (v_i v_j) mono_m
+    (monomials, float64 products of float32 y); the right-hand sides add
+    (s2 v_i) delta, resp. (v_i rs) (delta, y x delta). Node i's marked
+    chunks of 32 rows (those holding it) are cut by rank into `warps`
+    shares; each share sums from +0.0 in row order; the shares are summed
+    in order and rounded once to float32. On the CPU index_add_ adds in
+    index order."""
+    mono = y is not None
     N, K = data_idx.shape
     dev = data_w.device
     f64 = torch.float64
-    idx = data_idx.to(torch.int64).reshape(-1)
-    w = data_w.reshape(-1)
-    row = torch.arange(N * K, device=dev) // K
-    live = (idx >= 0) & (idx < D) & (s2[row] != 0) & (w != 0)
-    keys = torch.where(live, idx, D)
-    perm = torch.sort(keys, stable=True).indices[:int(live.sum())]
-    node = keys[perm]
-    counts = torch.bincount(node, minlength=D)
-    start = torch.cumsum(counts, 0) - counts
-    off = torch.arange(perm.numel(), device=dev) - start[node]
-    length = counts[node]
-    share = sum((off >= length * g // warps).to(torch.int64)
-                for g in range(1, warps))
-    n = row[perm]
-    ws = s2[n].to(f64) * w[perm].to(f64)  # (E,)
-    cols = data_idx[n].to(torch.int64)  # (E, K)
-    ok = (cols >= 0) & (cols < D)
-    # per entry, the first slot holding a node adds the sum of that node's
-    # slots, in slot order
-    same = ok[:, :, None] & ok[:, None, :] & (cols[:, :, None]
-                                              == cols[:, None, :])
-    first = ok & ~torch.tril(same, diagonal=-1).any(2)
-    p = ws[:, None] * data_w[n].to(f64)
-    val_a = torch.zeros_like(p)
-    for s in range(K):
-        val_a = val_a + torch.where(same[:, :, s], p[:, s:s + 1], 0.0)
-    val_a = torch.where(first, val_a, 0.0)
-    R = D + 3
-    base = (share * D + node) * R  # (E,)
-    tgt_a = base[:, None] + torch.where(ok, cols, 0)
-    tgt_b = base[:, None] + D + torch.arange(3, device=dev)
-    val_b = ws[:, None] * delta[n].to(f64)
-    acc = torch.zeros(warps * D * R, dtype=f64, device=dev)
-    # entries in bucket order, each entry's slots in order, then its rhs
-    acc.index_add_(0, torch.cat([tgt_a, tgt_b], 1).reshape(-1),
-                   torch.cat([val_a, val_b], 1).reshape(-1))
-    acc = acc.reshape(warps, D, R)
-    tot = acc[0]
-    for g in range(1, warps):
-        tot = tot + acc[g]
-    tot = tot.to(torch.float32)
-    return tot[:, :D].contiguous(), tot[:, D:].contiguous()
+    idx, live, first, v = _row_weights(data_idx, data_w, s2, D, mono)
+    share = _shares(idx, first, D, warps)
+    node = torch.where(first, idx, 0)
+    pair = first[:, :, None] & first[:, None, :]
+    p = v[:, :, None] * v[:, None, :]  # (N, K, K): row n, slot of i, of j
+    s2d = s2.to(f64)
+    R = 6 if mono else 3
+    if mono:
+        yd = y.to(f64)
+        yx, yy, yz = yd.unbind(-1)
+        mo = torch.stack([torch.ones_like(yx), yx, yy, yz, yx * yx, yx * yy,
+                          yx * yz, yy * yy, yy * yz, yz * yz])  # (10, N)
+        d = delta.to(f64)
+        dx, dy, dz = d.unbind(-1)
+        dc = torch.stack([dx, dy, dz, yy * dz - yz * dy, yz * dx - yx * dz,
+                          yx * dy - yy * dx], -1)  # (N, 6)
+        u = v * _sqrt_f32(s2).to(f64)[:, None]
+        terms = [(p * mo[m][:, None, None])[pair] for m in range(10)]
+    else:
+        dc = delta.to(f64)
+        u = s2d[:, None] * v
+        terms = [(s2d[:, None, None] * p)[pair]]
+    rhs_terms = (u[:, :, None] * dc[:, None, :])[first]  # (E, R)
+    # sum targets: per (share, i, j) and (share, i)
+    key_g = ((share * D + node)[:, :, None] * D + node[:, None, :])[pair]
+    key_gr = (share * D + node)[first]
+
+    def total(acc):  # (warps, ...) -> shares summed in order, rounded once
+        tot = acc[0]
+        for g in range(1, warps):
+            tot = tot + acc[g]
+        return tot.to(torch.float32)
+
+    def summed(keys, vals, width):
+        """vals (E, ...) into (warps * width, ...) at keys, in index
+        order."""
+        acc = torch.zeros((warps * width,) + vals.shape[1:], dtype=f64,
+                          device=dev)
+        acc.index_add_(0, keys, vals)
+        return acc
+
+    G = [total(summed(key_g, t, D * D).reshape(warps, D, D)) for t in terms]
+    rhs = total(summed(key_gr, rhs_terms, D).reshape(warps, D, R))
+    if mono:
+        return torch.stack(G), rhs[:, :3].contiguous(), rhs[:, 3:].contiguous()
+    return G[0], rhs
 
 
-def data_normal_warps(D: int) -> int:
-    """The warps per block the data Gram kernel launches with for D nodes
-    (the shares of each node's bucket); on the card only."""
+def gather_work(data_idx, data_w, s2, D: int, mono: bool) -> dict:
+    """Per node (D,): the rows holding it, its marked chunks of 32 rows and
+    its neighbours (the nodes sharing a row with it; the kernel takes them
+    in passes of 32) under the kernels' liveness rule (for chip_smoke.py's
+    work counts)."""
+    idx, _, first, _ = _row_weights(data_idx, data_w, s2, D, mono)
+    N = idx.shape[0]
+    node = torch.where(first, idx, D)
+    rows = torch.bincount(node.reshape(-1), minlength=D + 1)[:D]
+    chunk = torch.arange(N, device=idx.device)[:, None] // CHUNK
+    key = torch.unique(torch.where(first, node * (N // CHUNK + 1) + chunk,
+                                   -1))
+    key = key[key >= 0]
+    chunks = torch.bincount(key // (N // CHUNK + 1), minlength=D)[:D]
+    pair = first[:, :, None] & first[:, None, :]
+    pk = torch.unique((node[:, :, None] * D + node[:, None, :])[pair])
+    neighbours = torch.bincount(pk // D, minlength=D)[:D]
+    return dict(rows=rows, chunks=chunks, neighbours=neighbours)
+
+
+def gram_warps(N: int, D: int, mono: bool) -> int:
+    """The warps per block (the shares of each node's rows) the Gram
+    kernels launch with for N rows and D nodes; on the card only."""
     out = ctypes.c_int(0)
-    kernels.check(kernels.load().dynfu_data_normal_warps(D, ctypes.byref(out)),
-                  "data_normal_warps")
+    kernels.check(kernels.load().dynfu_gram_warps(N, D, int(mono),
+                                                  ctypes.byref(out)),
+                  "gram_warps")
     return out.value
+
+
+def _scratch(lib, N: int, D: int, dev):
+    """The chunk masks the Gram kernels mark (zeroed in the C call)."""
+    return torch.empty((max(1, lib.dynfu_gram_scratch(N, D)),),
+                       dtype=torch.int32, device=dev)
 
 
 def data_normal(data_idx: torch.Tensor, data_w: torch.Tensor,
@@ -125,8 +213,7 @@ def data_normal(data_idx: torch.Tensor, data_w: torch.Tensor,
     kernels.require(s2, "s2", torch.float32, (N,), dev)
     kernels.require(delta, "delta", torch.float32, (N, 3), dev)
     lib = kernels.load()
-    scratch = torch.empty((lib.dynfu_data_normal_scratch(N, K, D),),
-                          dtype=torch.int32, device=dev)
+    scratch = _scratch(lib, N, D, dev)
     A = torch.empty((D, D), dtype=torch.float32, device=dev)
     b = torch.empty((D, 3), dtype=torch.float32, device=dev)
     kernels.check(lib.dynfu_data_normal(
@@ -145,42 +232,6 @@ def monomials(y):
     yx, yy, yz = y.unbind(-1)
     return torch.stack([torch.ones_like(yx), yx, yy, yz, yx * yx, yx * yy,
                         yx * yz, yy * yy, yy * yz, yz * yz])  # (10, N)
-
-
-def mono_segments(data_idx, data_w, s2, D: int, rows: int, u: int,
-                  min_rows: int):
-    """[(first row, rows, distinct nodes)] in the order the kernel's blocks
-    take them: each tile of `rows` rows is cut into segments, a segment
-    with more than u distinct live nodes (indices in [0, D) of slots with
-    sqrt(max(s2, 0)) w != 0) halved while it is longer than min_rows, the
-    next one starting at the length the last ended with. A segment left
-    with more than u takes the global-atomic route."""
-    N = data_idx.shape[0]
-    rs = torch.sqrt(torch.clamp_min(s2, 0.0))
-    live = ((data_idx >= 0) & (data_idx < D)
-            & (rs[:, None] * data_w != 0.0)).cpu().numpy()
-    idx = data_idx.cpu().numpy()
-    out = []
-    for t0 in range(0, N, rows):
-        end, r0, length = min(N, t0 + rows), t0, rows
-        while r0 < end:
-            nr = min(length, end - r0)
-            n = len(set(idx[r0:r0 + nr][live[r0:r0 + nr]].tolist()))
-            if n > u and nr > min_rows:
-                length = (nr + 1) // 2
-                continue
-            out.append((r0, nr, n))
-            r0 += nr
-    return out
-
-
-def mono_tiling() -> tuple[int, int, int]:
-    """The monomial-Gram kernel's tiling, as compiled into it: (rows per
-    tile, local slots u, shortest halved segment); on the card only."""
-    out = (ctypes.c_int * 3)()
-    kernels.check(kernels.load().dynfu_monomial_grams_tiling(out),
-                  "monomial_grams_tiling")
-    return tuple(out)
 
 
 def monomial_grams_plain(data_idx, data_w, s2, y, delta, D: int):
@@ -237,10 +288,12 @@ def monomial_grams(data_idx: torch.Tensor, data_w: torch.Tensor,
     Bu = torch.empty((D, 3), dtype=torch.float32, device=dev)
     Bw = torch.empty((D, 3), dtype=torch.float32, device=dev)
     lib = kernels.load()
+    scratch = _scratch(lib, N, D, dev)
     kernels.check(lib.dynfu_monomial_grams(
         data_idx.data_ptr(), data_w.data_ptr(), s2.data_ptr(), y.data_ptr(),
-        delta.data_ptr(), N, K, D, B.data_ptr(), Bu.data_ptr(),
-        Bw.data_ptr(), kernels.stream(data_idx)), "monomial_grams")
+        delta.data_ptr(), N, K, D, scratch.data_ptr(), B.data_ptr(),
+        Bu.data_ptr(), Bw.data_ptr(), kernels.stream(data_idx)),
+        "monomial_grams")
     monomial_grams.launches += 1
     return B, Bu, Bw
 

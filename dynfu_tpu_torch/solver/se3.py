@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from dynfu_tpu_torch.core import dualquat as dq
+from dynfu_tpu_torch.ops import segsum
 from dynfu_tpu_torch.solver import gram_cuda
 from dynfu_tpu_torch.solver.gn import pcg, tukey_biweights
 from dynfu_tpu_torch.warp import field as wfield
@@ -156,11 +157,11 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D: int,
     cross = torch.zeros((D, D, 6, 6), dtype=torch.float32, device=dev)
     cross.index_put_((rows, reg_idx), Mkj, accumulate=True)
     A = -cross - cross.permute(1, 0, 3, 2)
-    diag = torch.sum(Mkk, 1).index_add(0, flat_j, Mjj.reshape(-1, 6, 6))
+    diag = segsum.index_add(torch.sum(Mkk, 1), flat_j, Mjj.reshape(-1, 6, 6))
     idx = torch.arange(D, device=dev)
     A[idx, idx] += diag
     A = torch.swapaxes(A, 1, 2)  # (D, 6, D, 6)
-    b = bk - torch.zeros_like(bk).index_add(0, flat_j, bj.reshape(-1, 6))
+    b = bk - segsum.index_add(torch.zeros_like(bk), flat_j, bj.reshape(-1, 6))
 
     if similarity:
         # marginalise one uniform-scale mode per connected component of the
@@ -168,13 +169,14 @@ def _assemble_reg(wf, reg_idx, edge_mask, reg_w2, D: int,
         d_e = (pos[:, None, :] - n_pos) * edge_mask[..., None]
         Jtd_j = torch.sum(Gj * d_e[..., None], 2).reshape(-1, 6)
         Jtd = (torch.sum(Gk * d_e[..., None], (1, 2))
-               - torch.zeros((D, 6), device=dev).index_add(0, flat_j, Jtd_j))
+               - segsum.index_add(torch.zeros((D, 6), device=dev), flat_j,
+                                  Jtd_j))
         lab = _component_labels(reg_idx, edge_mask > 0.0, D)
         OHc = (lab[:, None] == idx[None, :]).to(torch.float32)  # (D, D)
-        dtd_c = torch.zeros(D, device=dev).index_add(
-            0, lab, torch.sum(d_e * d_e, (1, 2)))
-        dtr_c = torch.zeros(D, device=dev).index_add(
-            0, lab, torch.sum(d_e * r0, (1, 2)))
+        dtd_c = segsum.index_add(torch.zeros(D, device=dev), lab,
+                                 torch.sum(d_e * d_e, (1, 2)))
+        dtr_c = segsum.index_add(torch.zeros(D, device=dev), lab,
+                                 torch.sum(d_e * r0, (1, 2)))
         inv_c = torch.where(dtd_c > 1e-12, 1.0 / torch.clamp_min(dtd_c, 1e-12),
                             0.0)
         V = (Jtd[:, :, None] * OHc[:, None, :]).reshape(D * 6, D)

@@ -28,7 +28,7 @@ import torch
 
 from dynfu_tpu_torch.core import dualquat as dq
 from dynfu_tpu_torch.kernels import resolve_device
-from dynfu_tpu_torch.ops import knn, knn_cuda, warp_cuda
+from dynfu_tpu_torch.ops import knn, knn_cuda, segsum, warp_cuda
 
 KNN = 8  # warp_field.hpp:27
 
@@ -176,10 +176,11 @@ def voxel_downsample(points, point_mask, leaf: float, capacity: int,
     H = max(2 * capacity, 1024)
     slot = torch.where(cid >= 0, cid % H, H).to(torch.int64)
     w_eff = torch.where(point_mask, wgt, 0.0)
-    sums = torch.zeros((H + 1, 3), dtype=torch.float32, device=dev)
-    sums.index_add_(0, slot, w_eff[:, None] * points)
-    cnts = torch.zeros((H + 1,), dtype=torch.float32, device=dev)
-    cnts.index_add_(0, slot, w_eff)
+    sums = segsum.index_add(
+        torch.zeros((H + 1, 3), dtype=torch.float32, device=dev), slot,
+        w_eff[:, None] * points)
+    cnts = segsum.index_add(
+        torch.zeros((H + 1,), dtype=torch.float32, device=dev), slot, w_eff)
     imax = torch.iinfo(torch.int32).max
     reps = torch.full((H + 1,), imax, dtype=torch.int32, device=dev)
     reps = reps.scatter_reduce(0, slot, torch.where(cid >= 0, cid, imax),
