@@ -31,7 +31,9 @@
    node. Each Gram must give the same bits over three launches and the bits
    of its plain fixed-order model (gram_cuda.gram_fixed_order);
 4. small-input checks: three frames of a 64^3 scene in parity mode, in
-   SE(3) fusion mode and through rigid KinFu (120x160) on the card, each
+   SE(3) fusion mode, through rigid KinFu (120x160), in fixed mode (three
+   spheres, the gather ICP) and in parity mode with foreground tracking
+   (fg_aabb, the box overflowing 256 tracked vertices) on the card, each
    against the same engine on the CPU;
 5. the main paths, each with every launch counter zeroed just before it and
    read just after, each requiring its kernels launched and no plain
@@ -54,7 +56,20 @@
      rotations=True, camera_motion=0.002); 14 ICPs x 19 stencil launches,
      the whole band captured, the accuracy bounds;
    - the same with similarity_reg=True (the SE(3) solve marginalises a
-     global scale), under the same checks.
+     global scale), under the same checks;
+   - translations-only fusion 512^3: run_fusion_benchmark(512); no dropped
+     edges, the whole band captured, the accuracy bounds;
+   - the umbrella 512^3: run_umbrella_benchmark(512), parity mode with
+     foreground tracking (2^19 edge vertices, 2^15 tracked); zero drops,
+     the visible-surface error bounds, a least coverage; before it, frame
+     0 alone prints the cells its marching cubes drops, the kept
+     canonical's x extent and its vertices in the foreground box;
+   - fixed mode 128^3: DynFusion(bench_params(128), mode="fixed") (the
+     gather ICP against the raycast model, real normals, its own solve
+     graph) on the moving-camera scene, 3 + 12 frames; zero drops, bounds
+     1.10 x the JAX package's figures for the same frames, loop and metric
+     with the port's formulations (scripts/jax_fixed_reference.py
+     --per-voxel).
 
 Prints each phase's seconds, the kernels' JSON line, the card's line, then
 as its last line the device JSON. Any failed check raises, and the script
@@ -96,8 +111,10 @@ from dynfu_tpu_torch.ops import (compaction, corr_cuda, knn,  # noqa: E402
 from dynfu_tpu_torch.rigid import icp  # noqa: E402
 from dynfu_tpu_torch.solver import gram_cuda  # noqa: E402
 from dynfu_tpu_torch.utils.benchmarks import (  # noqa: E402
-    bench_frame, bench_params, fusion_params, rigid_frame, rigid_params,
-    run_benchmark, run_fusion_benchmark, run_rigid_benchmark, spheres_depth)
+    bench_frame, bench_params, breathing_err_mm, fusion_params,
+    movingcam_frame, rigid_frame, rigid_params, run_benchmark,
+    run_fusion_benchmark, run_rigid_benchmark, run_umbrella_benchmark,
+    spheres_depth, umbrella_params)
 from dynfu_tpu_torch.volume import tsdf as tv  # noqa: E402
 from dynfu_tpu_torch.warp import field as wfield  # noqa: E402
 
@@ -126,6 +143,28 @@ JAX_MOVINGCAM = {"corr_dropped": 5956, "n_band": 904051}
 # row fusion_512_se3_movingcam_simreg: 6.521 / 10.76 / 1.49 mm, under the
 # moving camera's bounds
 JAX_SIMREG = {"corr_dropped": 5939, "n_band": 904015}
+# translations-only fusion 512^3 (row fusion_512): warped 4.293, half-motion
+# 3.998, canonical 3.918 mm
+MAX_T_WARPED_MM = 4.72
+MAX_T_WARPED_HALF_MM = 4.40
+MAX_T_CANONICAL_MM = 4.31
+JAX_FUSION_T = {"corr_dropped": 3326, "n_band": 423732}
+# the umbrella in parity mode with foreground tracking (row umbrella_512):
+# visible-surface error median 5.273, p90 11.133 mm over 21,862 pixels, no
+# drops; the coverage bound is 0.9 x JAX's, so that a thin cloud fails
+MAX_UMB_MEDIAN_MM = 5.80
+MAX_UMB_P90_MM = 12.25
+MIN_UMB_COVERAGE_PX = 19676
+# fixed mode at 128^3 (run_benchmark(128)'s parameters) on the moving-camera
+# scene (the breathing sphere, four anchors, the camera moving 2 mm a frame
+# along y), against the JAX package's figures on the CPU for the same
+# frames, loop and metric with the port's formulations
+# (scripts/jax_fixed_reference.py --per-voxel): warped 20.558, half-motion
+# 10.066, canonical 9.791 mm, the camera 15.831 mm off the truth at frame
+# 14, no drop in any frame. The bounds are 1.10 x those, with no drop.
+FIXED_WARMUP, FIXED_FRAMES, FIXED_CAMERA = 3, 12, 0.002
+FIXED_BOUNDS = {"warped_err_mm": 22.61, "warped_err_half_motion_mm": 11.07,
+                "canonical_err_mm": 10.77, "camera_err_mm": 17.41}
 # stencil fetches per ICP: one per iteration of the default schedule
 STENCIL_PER_ICP = sum(KinFuParams().icp_iter_num)
 
@@ -187,6 +226,12 @@ PATHS = {
                   "monomial_grams", "fetch_stencil"),
     "movingcam_simreg": ("pack_triangles", "knn_gather", "warp_fused_dlb",
                          "monomial_grams", "fetch_stencil"),
+    "fusion_t512": ("pack_triangles", "knn_gather", "warp_fused",
+                    "data_normal"),
+    "umbrella512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
+                    "warp_fused", "data_normal"),
+    "fixed128": ("pack_triangles", "knn_gather", "nn1_window_sweep",
+                 "warp_fused", "data_normal"),
 }
 
 
@@ -990,6 +1035,87 @@ def small_rigid_check():
           flush=True)
 
 
+def _small_scene_frames(intr, step):
+    """The 64^3 sphere moving `step` per frame beside two static spheres
+    (the static camera's ICP has three spheres to hold on to)."""
+    scene = [((0.28, 0.18, 0.85), 0.10), ((-0.25, -0.22, 0.9), 0.12)]
+    return [spheres_depth([((step * i, 0.0, 0.75), 0.22)] + scene,
+                          np.zeros(3), 96, 128, f=intr.fx)
+            for i in range(3)]
+
+
+def small_fixed_check():
+    """Three frames of fixed mode (the gather ICP against the raycast model,
+    TSDF-gradient normals) on the 64^3 three-sphere scene, on the card and
+    on the CPU."""
+    params, intr = _small_params()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = DynFusion(params, device=dev, mode="fixed")
+        for d in _small_scene_frames(intr, 0.005):
+            eng(d)
+        c = eng.canonical
+        v, m = eng.warped_cloud(unique=True)
+        post, _ = wfield.warp_points_normals(eng.warpfield, c.vertices,
+                                             c.vertices)
+        fs = eng.last_frame_stats
+        out[dev] = (v.cpu(), post.cpu(), m.cpu(), int(eng.warpfield.count),
+                    eng.poses, (int(fs.mc_dropped), int(fs.corr_dropped)))
+    (vg, qg, mg, ng, pg, dg), (vc, qc, mc, nc, pc, dc) = (out["cuda"],
+                                                          out["cpu"])
+    require(torch.isfinite(qg[mg]).all(), "non-finite warped vertices")
+    require(torch.equal(mg, mc) and ng == nc,
+            f"fixed: card and CPU node sets differ: {ng}/{nc}")
+    dpose = max(float(np.abs(a - b).max())
+                for x, y in zip(pg, pc) for a, b in zip(x, y))
+    err = float((vg - vc)[mg].abs().max())
+    post = (qg - qc)[mg].abs()
+    # frame 2's ICP pose: float32 sums in another order move it by ~1e-5
+    require(dpose <= 1e-4, f"fixed: card vs CPU poses differ by {dpose}")
+    # frames 0 and 1 (identity pose) as in the parity check
+    require(err <= 1e-4, f"fixed: card vs CPU warped cloud differs by "
+            f"{err} m")
+    # frame 2's solve: the pose difference can move a voxel behind a
+    # silhouette onto the neighbouring pixel, so its live soup may differ
+    # there; the solved field stays within a millimetre, most of it far
+    # closer
+    require(float(post.max()) <= 1e-3 and float(post.median()) <= 1e-5,
+            f"fixed: card vs CPU solved field differs by "
+            f"{float(post.max())} m (median {float(post.median())})")
+    print(f"small-input check (fixed): card vs CPU max |dpose| {dpose:.3g},"
+          f" max |dv| {err:.3g} m, solved max |dv| {float(post.max()):.3g} "
+          f"m, {ng} nodes, drops {dg} / {dc}, final t {pg[-1][1].tolist()}",
+          flush=True)
+
+
+def small_fg_check():
+    """Three frames of parity mode with foreground tracking (the right half
+    of the 64^3 sphere; the box overflows the 256 tracked vertices) on the
+    card and on the CPU: the same live set, drops (the box's overflow
+    included) and nodes; the full canonical's warped cloud within 1e-4 m."""
+    params, intr = _small_params(
+        fg_aabb=((0.5, 0.25, 0.25), (0.75, 0.75, 0.75)), max_fg_verts=256)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = DynFusion(params, device=dev)
+        for d in _small_frames(intr, 0.005):
+            eng(d)
+        v, m = eng.warped_cloud()
+        out[dev] = (v.cpu(), m.cpu(), int(eng.warpfield.count),
+                    eng.live.vertices.cpu(),
+                    int(eng.last_frame_stats.corr_dropped))
+    (vg, mg, ng, lg, cg), (vc, mc, nc, lc, cc) = out["cuda"], out["cpu"]
+    require(torch.isfinite(vg[mg]).all(), "non-finite warped vertices")
+    require(torch.equal(mg, mc) and ng == nc and cg == cc > 0,
+            f"fg: card and CPU differ: nodes {ng}/{nc}, corr_dropped "
+            f"{cg}/{cc}")
+    require(torch.equal(lg, lc), "fg: card and CPU live sets differ")
+    err = float((vg - vc)[mg].abs().max())
+    require(err <= 1e-4, f"fg: card vs CPU warped cloud differs by {err} m")
+    print(f"small-input check (fg): card vs CPU max |dv| {err:.3g} m, "
+          f"{ng} nodes, corr_dropped {cg}", flush=True)
+
+
 # --- the main paths --------------------------------------------------------
 
 
@@ -1166,6 +1292,120 @@ def simreg_phase():
     return movingcam_phase("movingcam_simreg", True, JAX_SIMREG)
 
 
+def fusion_t512_phase():
+    torch.cuda.reset_peak_memory_stats()
+    res, got = run_path("fusion_t512", lambda: run_fusion_benchmark(
+        volume_dims=512, device=DEV))
+    fusion_checks(res, (MAX_T_WARPED_MM, MAX_T_WARPED_HALF_MM,
+                        MAX_T_CANONICAL_MM), JAX_FUSION_T)
+    return got
+
+
+def umbrella_frame0():
+    """Frame 0 of the umbrella row alone: the occupied cells its marching
+    cubes drops at the preset's max_mc_voxels, the x extent of the
+    canonical it keeps and its vertices in the foreground box, against
+    frame 0's whole surface (no cell cap): why the row tracks nothing."""
+    from dynfu_tpu_torch.io import kinect_sim
+    from dynfu_tpu_torch.mesh.mc import marching_cubes
+
+    dp = umbrella_params(512)
+    eng = DynFusion(dp, device=DEV)
+    eng(kinect_sim.umbrella_frame(0, frames=16))
+    lo, hi = (torch.tensor(b, device=DEV) for b in dp.fg_aabb)
+
+    def in_box(v):
+        return int(((v >= lo) & (v < hi)).all(1).sum())
+
+    c = eng.canonical
+    kept = c.vertices[c.mask]
+    _, _, dropped = marching_cubes(
+        eng.vol, eng.tsdf_config, max_voxels=dp.max_mc_voxels,
+        max_verts=dp.max_vertices, col_budget=dp.mc_col_budget)
+    full, n_full, dropped_full = marching_cubes(
+        eng.vol, eng.tsdf_config, max_voxels=1 << 21, max_verts=1 << 23,
+        col_budget=511)
+    full = full[:int(n_full)]
+    out = {"max_mc_voxels": dp.max_mc_voxels,
+           "cells_dropped": int(dropped),
+           "canonical_vertices": int(kept.shape[0]),
+           "canonical_x_m": [float(kept[:, 0].min()),
+                             float(kept[:, 0].max())],
+           "canonical_in_box": in_box(kept),
+           "uncapped_cells_dropped": int(dropped_full),
+           "uncapped_soup_vertices": int(n_full),
+           "uncapped_x_m": [float(full[:, 0].min()), float(full[:, 0].max())],
+           "uncapped_soup_in_box": in_box(full), "box": dp.fg_aabb}
+    print("umbrella512 frame 0:", json.dumps(out), flush=True)
+    del eng, full
+    torch.cuda.empty_cache()
+
+
+def umbrella_phase():
+    umbrella_frame0()
+    torch.cuda.reset_peak_memory_stats()
+    res, got = run_path("umbrella512", lambda: run_umbrella_benchmark(
+        512, device=DEV))
+    print(f"umbrella512: frame_ms {res['frame_ms']}, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B", flush=True)
+    require(res["mc_dropped"] == 0, "umbrella: mc_dropped != 0")
+    require(res["corr_dropped"] == 0, "umbrella: corr_dropped != 0")
+    for key, bound in (("median_visible_err_mm", MAX_UMB_MEDIAN_MM),
+                       ("p90_visible_err_mm", MAX_UMB_P90_MM)):
+        require(res[key] <= bound, f"umbrella: {key} {res[key]} > {bound}")
+    require(res["coverage_px"] >= MIN_UMB_COVERAGE_PX,
+            f"umbrella: coverage_px {res['coverage_px']} < "
+            f"{MIN_UMB_COVERAGE_PX}")
+    return got
+
+
+def fixed_run():
+    """Fixed mode at 128^3 (run_benchmark(128)'s parameters) on the
+    moving-camera scene: 3 warmup frames, then 12 timed, the breathing
+    sphere's error half-way and at the end, the canonical's, the camera's
+    distance from the truth; the loop of scripts/jax_fixed_reference.py,
+    which runs the JAX package's fixed mode."""
+    eng = DynFusion(bench_params(128), device=DEV, mode="fixed")
+    half = FIXED_WARMUP + FIXED_FRAMES // 2 - 1
+    last = FIXED_WARMUP + FIXED_FRAMES - 1
+    frames = [movingcam_frame(i, FIXED_CAMERA) for i in range(last + 1)]
+
+    def err(i):
+        wv, wm = eng.warped_cloud(unique=True)
+        return breathing_err_mm(wv[wm].cpu().numpy(), i)
+
+    for i in range(FIXED_WARMUP):
+        eng(frames[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(FIXED_WARMUP, last + 1):
+        eng(frames[i])
+        if i == half:
+            err_half = err(i)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / FIXED_FRAMES
+    c, fs = eng.canonical, eng.last_frame_stats
+    t = np.asarray(eng.poses[-1][1])
+    return {"frame_ms": dt * 1e3, "warped_err_mm": err(last),
+            "warped_err_half_motion_mm": err_half,
+            "canonical_err_mm": breathing_err_mm(
+                c.vertices[c.mask].cpu().numpy(), 0),
+            "camera_err_mm": float(np.linalg.norm(
+                t - (0.0, FIXED_CAMERA * last, 0.0))) * 1e3,
+            "camera_t_m": t.tolist(), "mc_dropped": int(fs.mc_dropped),
+            "corr_dropped": int(fs.corr_dropped)}
+
+
+def fixed_phase():
+    res, got = run_path("fixed128", fixed_run)
+    print(f"fixed128: frame_ms {res['frame_ms']}", flush=True)
+    require(res["mc_dropped"] == 0, "fixed128: mc_dropped != 0")
+    require(res["corr_dropped"] == 0, "fixed128: corr_dropped != 0")
+    for key, bound in FIXED_BOUNDS.items():
+        require(res[key] <= bound, f"fixed128: {key} {res[key]} > {bound}")
+    return got
+
+
 def main() -> int:
     smi = nvidia_smi()
     print(f"card: {smi}", flush=True)
@@ -1174,12 +1414,17 @@ def main() -> int:
               ("small-input check (parity)", small_input_check),
               ("small-input check (fusion)", small_fusion_check),
               ("small-input check (rigid)", small_rigid_check),
+              ("small-input check (fixed)", small_fixed_check),
+              ("small-input check (fg)", small_fg_check),
               ("parity128", parity_phase),
               ("fusion", fusion_phase),
               ("rigid", rigid_phase),
               ("parity512", parity512_phase),
               ("movingcam", movingcam_phase),
-              ("movingcam_simreg", simreg_phase)]
+              ("movingcam_simreg", simreg_phase),
+              ("fusion_t512", fusion_t512_phase),
+              ("umbrella512", umbrella_phase),
+              ("fixed128", fixed_phase)]
     out = {}
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -1,8 +1,8 @@
-"""DynamicFusion orchestrator: the non-rigid frame loop, parity and fusion
-modes.
+"""DynamicFusion orchestrator: the non-rigid frame loop in parity, fixed and
+fusion modes.
 
-Port of the parity and fusion modes of dynfu_tpu/engine/dynfusion.py (the
-reference's DynFusion::operator(), dyn_fusion.cpp:48-144). Parity mode:
+Port of dynfu_tpu/engine/dynfusion.py (the reference's DynFusion::operator(),
+dyn_fusion.cpp:48-144). Parity mode:
 
   frame 0: dists, bilateral -> integrate -> marching cubes -> canonical
     (triangle soup; normals are a placeholder copy of the vertices, the
@@ -15,18 +15,33 @@ reference's DynFusion::operator(), dyn_fusion.cpp:48-144). Parity mode:
     canonical vertex), fetching the solve's data graph with it -> GN solve
     -> node insertion.
 
+Fixed mode is that loop with what the reference scaffolded and never wired:
+the camera pose by the gather ICP of the depth pyramid against the model's
+raycast pyramid (refreshed after every frame), TSDF-gradient normals
+(tsdf.extract_normals) for the canonical and the live soup, the warped
+normals fetched with the correspondence, and the solve's own data graph
+(or, with solver_rotations, DLB warps and the SE(3) solve).
+
+Foreground tracking (parity and fixed mode, fg_aabb with max_fg_verts):
+frame 0 samples nodes from the box only and keeps the box's first
+max_fg_verts canonical vertices as the tracked canonical; every frame
+compacts the live set to the box, in scan order, and counts the box's
+overflow into corr_dropped. The full canonical is kept for mesh() and is
+warped on demand by warped_cloud().
+
 Fusion mode (the persistent canonical volume of Newcombe et al. 3.3, which
 the reference's clear + re-integrate stands in for):
 
   frame 0: integrate -> marching cubes soup (corner convention) -> every
     node_sample_step-th soup vertex becomes a node -> the canonical becomes
-    the unique edge vertices with TSDF-gradient normals.
+    the unique edge vertices with TSDF-gradient normals (without
+    corr_unique_edges: the soup, with extract_normals).
   frame k: [with fusion_camera_tracking: frame-to-frame rigid ICP of the
     live depth, deforming regions masked out, for the camera pose] -> warp
     the canonical (DLB with solver_rotations, else DQB) -> projective
     association against the live point/normal maps -> SE(3) (or
     translation) solve -> warped integration into the canonical volume ->
-    re-extraction of the unique edge vertices -> node insertion.
+    re-extraction of the canonical surface -> node insertion.
 
 The frame runs eagerly on the engine's device; the hot stages are the
 hand-written kernels (mesh/mc_cuda, ops/warp_cuda, ops/knn_cuda,
@@ -48,7 +63,7 @@ from dynfu_tpu_torch.engine.kinfu import KinFu
 from dynfu_tpu_torch.engine.params import DynFuParams
 from dynfu_tpu_torch.mesh import edges
 from dynfu_tpu_torch.mesh.mc import marching_cubes
-from dynfu_tpu_torch.ops import imgproc, knn
+from dynfu_tpu_torch.ops import compaction, imgproc, knn
 from dynfu_tpu_torch.rigid import icp
 from dynfu_tpu_torch.solver import gn
 from dynfu_tpu_torch.solver import se3 as se3_solver
@@ -68,7 +83,8 @@ class Frame(NamedTuple):
 
 class FrameStats(NamedTuple):
     """mc_dropped: occupied marching-cubes cells not meshed (capacity);
-    corr_dropped: live vertices whose correspondence no tier could certify.
+    corr_dropped: live vertices whose correspondence no tier could certify,
+    plus, with foreground tracking, the box's vertices beyond max_fg_verts.
     Both are 0 on a healthy run."""
 
     solve: gn.SolveStats
@@ -97,16 +113,23 @@ def _sample_nodes(verts, vert_mask, capacity: int, step: int, dg_w: float):
     return wfield.WarpField(pos.contiguous(), dqs, w, mask, count)
 
 
-def _correspondence(warped_verts, warped_mask, live_verts, live_mask,
-                    rescue: int, escalate: int, window_blocks: int, payload):
-    """findCorrespondingFrame (dyn_fusion.cpp:212-242), parity mode: the
-    nearest warped canonical vertex of every live vertex, and its payload
-    row. Returns (corr_v, corr_mask, fetched payload columns)."""
+def _correspondence(warped_verts, warped_normals, warped_mask, live_verts,
+                    live_mask, parity: bool, rescue: int, escalate: int,
+                    window_blocks: int, payload=None):
+    """findCorrespondingFrame (dyn_fusion.cpp:212-242): the nearest warped
+    canonical vertex of every live vertex, its normal, and its payload row.
+    Parity mode's normals are the placeholder vertex copy, so only positions
+    and the payload (`values_fn`, computed after the sort) are fetched; fixed
+    mode fetches the warped vertices and normals as a (N, 6) values payload.
+    Returns (corr_v, corr_n, corr_mask, fetched payload columns)."""
+    vals = None if parity else torch.cat([warped_verts, warped_normals], 1)
     out, exact = knn.nn1_gather_xwindow(
-        live_verts, warped_verts, None, warped_mask, live_mask,
+        live_verts, warped_verts, vals, warped_mask, live_mask,
         rescue=rescue, escalate=escalate, window_blocks=window_blocks,
         values_fn=payload)
-    return out[:, :3], live_mask & exact, out[:, 3:]
+    n = 0 if parity else 3  # where the normals start
+    return (out[:, :3], out[:, n:n + 3], live_mask & exact,
+            out[:, n + 3:])
 
 
 def _graph_payload(wf: wfield.WarpField, dp: DynFuParams):
@@ -131,12 +154,33 @@ def _graph_payload(wf: wfield.WarpField, dp: DynFuParams):
     return payload
 
 
-def _nonrigid_frame(vol, wf, canonical_v, canonical_m, depth_mm, pose, *,
-                    dp: DynFuParams, intr, config, canonical_mult=None):
-    """Frame k >= 1 of the parity pipeline (dyn_fusion.cpp:100-144)."""
+def _in_box(v, aabb):
+    """Vertices inside the half-open box aabb = (lo3, hi3)."""
+    lo, hi = aabb
+    return ((v[:, 0] >= lo[0]) & (v[:, 0] < hi[0])
+            & (v[:, 1] >= lo[1]) & (v[:, 1] < hi[1])
+            & (v[:, 2] >= lo[2]) & (v[:, 2] < hi[2]))
+
+
+def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
+                    pose, *, dp: DynFuParams, intr, config, parity: bool,
+                    canonical_mult=None):
+    """Frame k >= 1 of the parity and fixed pipelines
+    (dyn_fusion.cpp:100-144). Parity keeps the reference's quirks (placeholder
+    normals, the data graph fetched with the correspondence); fixed mode has
+    TSDF-gradient normals, fetches the warped normals with the
+    correspondence, and solves with its own graph (or per-node SE(3) with
+    solver_rotations). The per-voxel integrate serves any pose.
+
+    With fg_aabb (foreground tracking) the live set is compacted to the box,
+    in scan order, before correspondence and solve; live vertices in the box
+    beyond max_fg_verts count into corr_dropped.
+
+    Returns (vol, wf, wv, wn, (live_v, live_n, live_m), (mesh_verts,
+    n_verts), stats)."""
     dists = imgproc.compute_dists(depth_mm, intr)
     vol = tv.integrate(vol, dists, pose, intr, config, fresh=True)
-    if dp.corr_unique_edges:
+    if dp.corr_unique_edges and parity:
         # the unique vertex set feeds correspondence and solve; the
         # triangle soup is left to DynFusion.mesh() (source :234-249)
         live_v, n_verts, mc_dropped = edges.isosurface_edge_vertices(
@@ -147,35 +191,67 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_m, depth_mm, pose, *,
         live_v, n_verts, mc_dropped = marching_cubes(
             vol, config, max_voxels=dp.max_mc_voxels,
             max_verts=dp.max_vertices, col_budget=dp.mc_col_budget)
+    mesh = (live_v, n_verts)
     live_m = torch.arange(live_v.shape[0], device=live_v.device) < n_verts
+    live_n = (live_v if parity
+              else tv.extract_normals(vol, live_v, config, frame="volume"))
 
-    # warp canonical -> live with the pre-solve field (dyn_fusion.cpp:203);
-    # normals are the placeholder vertex copy
-    wv, wn = wfield.warp_points_normals(wf, canonical_v, canonical_v)
+    fg_dropped = 0
+    if dp.fg_aabb is not None and dp.max_fg_verts > 0:
+        # the tracked live set: the box's vertices in scan order (the
+        # correspondence window relies on it)
+        inb = live_m & _in_box(live_v, dp.fg_aabb)
+        n = live_v.shape[0]
+        fidx = compaction.rank_select(inb, dp.max_fg_verts, n)
+        fok = fidx < n
+        fsafe = torch.clamp_max(fidx, n - 1)
+        live_v = torch.where(fok[:, None], live_v[fsafe], 0.0)
+        live_n = (live_v if parity
+                  else torch.where(fok[:, None], live_n[fsafe], 0.0))
+        live_m = fok
+        fg_dropped = torch.clamp_min(
+            inb.sum(dtype=torch.int32) - dp.max_fg_verts, 0)
 
-    corr_v, corr_m, fetched = _correspondence(
-        wv, canonical_m, live_v, live_m, rescue=dp.corr_rescue,
+    # warp canonical -> live with the pre-solve field (dyn_fusion.cpp:203)
+    rotations = dp.solver_rotations and not parity
+    if rotations:
+        wv, wn = wfield.warp_points_normals_dlb(wf, canonical_v, canonical_n)
+    else:
+        wv, wn = wfield.warp_points_normals(wf, canonical_v, canonical_n)
+
+    corr_v, _, corr_m, fetched = _correspondence(
+        wv, wn, canonical_m, live_v, live_m, parity, rescue=dp.corr_rescue,
         escalate=dp.corr_escalate, window_blocks=dp.corr_window_blocks,
-        payload=_graph_payload(wf, dp))
+        payload=_graph_payload(wf, dp) if parity else None)
 
-    k = dp.knn
-    graph_w = (fetched[:, :k], fetched[:, k:2 * k],
-               fetched[:, 2 * k:2 * k + 3])
-    wf, solve_stats = gn.solve(
-        wf, corr_v, live_v, vert_mask=corr_m & live_m, graph_w=graph_w,
-        tukey_offset=dp.tukey_offset, psi_data=dp.psi_data,
-        lambda_reg=dp.lambda_reg, psi_reg=dp.psi_reg,
-        linear_iter=dp.solver.linear_iter, knn_k=dp.knn,
-        nonlinear_iter=dp.solver.nonlinear_iter,
-        num_iter=dp.solver.num_iter, early_out=dp.solver.early_out)
+    solver = dict(tukey_offset=dp.tukey_offset, psi_data=dp.psi_data,
+                  lambda_reg=dp.lambda_reg, psi_reg=dp.psi_reg,
+                  linear_iter=dp.solver.linear_iter, knn_k=dp.knn)
+    if rotations:
+        # corr_v is already warped: the incremental convention
+        wf, solve_stats = se3_solver.solve(
+            wf, corr_v, live_v, vert_mask=corr_m & live_m,
+            relinearize=dp.se3_relinearize, incremental=True,
+            rot_prior=dp.se3_rot_prior, trans_prior=dp.se3_trans_prior,
+            similarity_reg=dp.se3_similarity_reg, **solver)
+    else:
+        k = dp.knn
+        graph_w = ((fetched[:, :k], fetched[:, k:2 * k],
+                    fetched[:, 2 * k:2 * k + 3]) if parity else None)
+        wf, solve_stats = gn.solve(
+            wf, corr_v, live_v, vert_mask=corr_m & live_m, graph_w=graph_w,
+            nonlinear_iter=dp.solver.nonlinear_iter,
+            num_iter=dp.solver.num_iter, early_out=dp.solver.early_out,
+            **solver)
 
     # node insertion from the warped canonical frame (dyn_fusion.cpp:142)
     wf = wfield.update_warpfield(wf, wv, canonical_m, dp.epsilon,
                                  dp.node_voxel_leaf, dp.max_new_nodes,
+                                 blend="dlb" if rotations else "dqb",
                                  vert_weights=canonical_mult)
-    corr_dropped = torch.sum(live_m & ~corr_m, dtype=torch.int32)
+    corr_dropped = torch.sum(live_m & ~corr_m, dtype=torch.int32) + fg_dropped
     stats = FrameStats(solve_stats, mc_dropped, corr_dropped)
-    return vol, wf, wv, wn, (live_v, n_verts), stats
+    return vol, wf, wv, wn, (live_v, live_n, live_m), mesh, stats
 
 
 class FusionFrameStats(NamedTuple):
@@ -326,14 +402,24 @@ def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
 
     with _stage("extract"):
         # re-extract the canonical surface with gradient normals, then insert
-        # nodes where it is unsupported (warp_field.cpp:63-95)
-        mesh_verts, n_verts, mc_dropped, new_n = \
-            edges.isosurface_edge_vertices(
-                vol, config,
-                max_edges=dp.max_edge_verts or dp.max_vertices // 2,
-                convention="corner",
-                col_budget=dp.edge_col_budget or dp.mc_col_budget,
-                with_normals=True)
+        # nodes where it is unsupported (warp_field.cpp:63-95): the unique
+        # edge vertices (normals from the lattice gradients), or the
+        # marching-cubes soup with extract_normals
+        if dp.corr_unique_edges:
+            mesh_verts, n_verts, mc_dropped, new_n = \
+                edges.isosurface_edge_vertices(
+                    vol, config,
+                    max_edges=dp.max_edge_verts or dp.max_vertices // 2,
+                    convention="corner",
+                    col_budget=dp.edge_col_budget or dp.mc_col_budget,
+                    with_normals=True)
+        else:
+            mesh_verts, n_verts, mc_dropped = marching_cubes(
+                vol, config, max_voxels=dp.max_mc_voxels,
+                max_verts=dp.max_vertices, convention="corner",
+                col_budget=dp.mc_col_budget)
+            new_n = tv.extract_normals(vol, mesh_verts, config,
+                                       frame="volume")
         new_m = torch.arange(mesh_verts.shape[0], device=dev) < n_verts
     with _stage("insert"):
         if dp.solver_rotations:
@@ -352,51 +438,44 @@ def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
     corr_dropped = torch.sum(canonical_m & ~corr_m, dtype=torch.int32)
     stats = FusionFrameStats(solve_stats, mc_dropped, corr_dropped,
                              band_stats)
-    return vol, wf, mesh_verts, new_n, new_m, wv2, wn2, stats
+    return vol, wf, mesh_verts, new_n, new_m, n_verts, wv2, wn2, stats
 
 
 class DynFusion(KinFu):
     """Non-rigid fusion engine. Call with (H, W) integer mm depth images
     (numpy or tensor).
 
-    mode="parity" reproduces the reference's loop and quirks;
-    mode="fusion" keeps a persistent canonical volume with warped
+    mode="parity" reproduces the reference's loop and quirks; mode="fixed"
+    is that loop with the fixes the reference scaffolded and never wired
+    (the camera pose by rigid ICP against the raycast model, TSDF-gradient
+    normals); mode="fusion" keeps a persistent canonical volume with warped
     integration (see _fusion_frame), with frame-to-frame camera tracking
-    when fusion_camera_tracking is set. "fixed" (the reference's loop with
-    rigid ICP and real normals) and foreground tracking (fg_aabb) are not
-    ported yet and raise."""
+    when fusion_camera_tracking is set. In parity and fixed mode, fg_aabb
+    with max_fg_verts > 0 tracks only the foreground box (see
+    _fg_compact)."""
 
     def __init__(self, params: Optional[DynFuParams] = None, device="cuda",
                  mode: str = "parity"):
         if mode not in ("parity", "fixed", "fusion"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mode == "fixed":
-            raise NotImplementedError(
-                "mode='fixed' needs tsdf.extract_normals and the fixed "
-                "frame (ROADMAP.md item E)")
+        self.mode = mode
         self.dynfu_params = params or DynFuParams.default_params()
         dp = self.dynfu_params
-        if (dp.fg_aabb is not None and dp.max_fg_verts > 0
-                and mode != "fusion"):
-            raise NotImplementedError(
-                "fg_aabb / max_fg_verts (foreground tracking) is not ported "
-                "yet (ROADMAP.md item 11)")
-        if mode == "fusion" and not dp.corr_unique_edges:
-            raise NotImplementedError(
-                "fusion mode without corr_unique_edges needs "
-                "tsdf.extract_normals (ROADMAP.md item E)")
-        self.mode = mode
         super().__init__(dp.kinfu, device)
         self.warpfield: Optional[wfield.WarpField] = None
         self.canonical: Optional[Frame] = None
         self.canonical_warped: Optional[Frame] = None
+        # foreground tracking: the canonical compacted to the box and its
+        # soup multiplicities (the full canonical stays in self.canonical)
+        self._fg_canonical: Optional[Frame] = None
+        self._fg_mult = None
         # canonical dedup state: the frame-0 soup holds each mesh vertex
         # ~6x; the per-frame passes run on the unique set
         self.soup_inverse = None  # (max_vertices,) int32 -> unique slot
         self.soup_mask = None  # (max_vertices,) bool
         self.canonical_mult = None  # (Ucap,) f32 soup multiplicity
         self.mesh_vertices = None  # last triangle soup (buffer, count)
-        self.live: Optional[Frame] = None  # parity: the frame's live set
+        self.live: Optional[Frame] = None  # the frame's live set
         self.last_frame_stats = None  # FrameStats or FusionFrameStats
         self.last_solve_stats = None
         self.prev_live_pyr = None  # fusion_camera_tracking reference pyramid
@@ -407,15 +486,52 @@ class DynFusion(KinFu):
             self.vol, self.tsdf_config, max_voxels=dp.max_mc_voxels,
             max_verts=dp.max_vertices,
             # fusion mode needs vertices consistent with the TSDF samples;
-            # parity keeps the reference's half-voxel-shifted meshes
+            # parity and fixed keep the reference's half-voxel-shifted meshes
             convention="corner" if self.mode == "fusion" else "center",
             col_budget=dp.mc_col_budget)
 
     def _mc_frame(self, idx: int) -> Frame:
+        """Marching cubes -> the triangle-soup Frame; its normals are the
+        placeholder vertex copy in parity mode (dyn_fusion.cpp:80-88), the
+        TSDF gradient otherwise."""
         verts, n_verts, _ = self._marching_cubes()
         self.mesh_vertices = (verts, n_verts)
         mask = torch.arange(verts.shape[0], device=verts.device) < n_verts
-        return Frame(idx, verts, verts, mask)  # placeholder normals
+        normals = (verts if self.mode == "parity" else tv.extract_normals(
+            self.vol, verts, self.tsdf_config, frame="volume"))
+        return Frame(idx, verts, normals, mask)
+
+    def _fg_enabled(self) -> bool:
+        dp = self.dynfu_params
+        return (dp.fg_aabb is not None and dp.max_fg_verts > 0
+                and self.mode != "fusion")
+
+    def _fg_compact(self, frame: Frame):
+        """One host compaction of the deduplicated canonical to the
+        foreground box (DynFuParams.fg_aabb): the first max_fg_verts box
+        vertices in index order become the tracked canonical, with their
+        soup multiplicities. An overflow is printed, and the rest are not
+        tracked. The full canonical stays in self.canonical for meshes and
+        exports; its background warps to ~identity on demand (its node
+        weights vanish)."""
+        v = frame.vertices.cpu().numpy()
+        idx = np.nonzero(frame.mask.cpu().numpy()
+                         & _in_box(v, self.dynfu_params.fg_aabb))[0]
+        cap = self.dynfu_params.max_fg_verts
+        if len(idx) > cap:
+            print(f"fg canonical overflow: {len(idx)} > {cap} "
+                  f"(tracking the first {cap})")
+            idx = idx[:cap]
+
+        def padded(a, dtype):
+            out = np.zeros((cap,) + a.shape[1:], dtype)
+            out[:len(idx)] = a[idx]
+            return torch.as_tensor(out, device=self.device)
+
+        fm = padded(np.ones(v.shape[0], bool), bool)
+        return (Frame(frame.idx, padded(v, np.float32),
+                      padded(frame.normals.cpu().numpy(), np.float32), fm),
+                padded(self.canonical_mult.cpu().numpy(), np.float32))
 
     def _dedup_canonical(self, frame: Frame) -> Frame:
         """One host dedup of the frame-0 soup (numpy np.unique, so the
@@ -477,6 +593,20 @@ class DynFusion(KinFu):
             self.poses.append(self.poses[-1])
         self.prev_live_pyr = curr_pyr
 
+    def _fixed_track_pose(self, depth_mm: torch.Tensor) -> None:
+        """Fixed mode's camera pose (source: dynfusion.py:921-946): the
+        gather ICP of the current depth pyramid against the raycast pyramid
+        of the model (self.prev_pyr, refreshed after every frame); identity
+        increment before the first refresh or when the ICP is degenerate."""
+        packed = None
+        if self.prev_pyr is not None:
+            _, curr_pyr = self._preprocess(depth_mm)
+            packed = self._track_gather(curr_pyr, self.prev_pyr)
+        if packed is not None and packed[12] != 0.0:
+            self._push_pose(packed)
+        else:
+            self.poses.append(self.poses[-1])
+
     def __call__(self, depth_mm, image=None) -> bool:
         """Frame ingestion; `image` is accepted and unused, as in the
         reference. Returns False for the bootstrap frame."""
@@ -497,17 +627,25 @@ class DynFusion(KinFu):
                 if p.icp_truncate_depth_dist > 0:
                     filtered = imgproc.truncate_depth(
                         filtered, p.icp_truncate_depth_dist)
-                # the parity loop runs no ICP (dyn_fusion.cpp:53-65)
+                # frame 0 runs no ICP (dyn_fusion.cpp:53-65)
                 del filtered
             self.vol = tv.integrate(self.vol, dists, self.poses[-1], p.intr,
                                     self.tsdf_config)
             frame = self._mc_frame(0)
             # node sampling strides the SOUP (dyn_fusion.cpp:151), before
-            # the dedup
+            # the dedup; with foreground tracking, the box's vertices only
+            node_mask = frame.mask
+            if self._fg_enabled():
+                node_mask = node_mask & _in_box(frame.vertices, dp.fg_aabb)
             self.warpfield = _sample_nodes(
-                frame.vertices, frame.mask, dp.max_nodes, dp.node_sample_step,
+                frame.vertices, node_mask, dp.max_nodes, dp.node_sample_step,
                 dp.init_node_dg_w_factor * dp.epsilon)
-            if self.mode == "fusion":
+            if self.mode != "fusion":
+                frame = self._dedup_canonical(frame)
+                if self._fg_enabled():
+                    self._fg_canonical, self._fg_mult = \
+                        self._fg_compact(frame)
+            elif dp.corr_unique_edges:
                 # the canonical at unique-vertex granularity from frame 0,
                 # so every fusion frame has one shape
                 ev, ne, _, en = edges.isosurface_edge_vertices(
@@ -518,64 +656,104 @@ class DynFusion(KinFu):
                     with_normals=True)
                 frame = Frame(0, ev, en,
                               torch.arange(ev.shape[0], device=ev.device) < ne)
-            else:
-                frame = self._dedup_canonical(frame)
             self.canonical = frame
             self.canonical_warped = frame
             self.frame_counter += 1
             return False
 
-        c = self.canonical
         if self.mode == "fusion":
+            c = self.canonical
             if dp.fusion_camera_tracking:
                 with _stage("track"):
                     self._fusion_track_pose(depth_mm)
             else:
                 self.poses.append(self.poses[-1])
-            (self.vol, self.warpfield, new_v, new_n, new_m, wv2, wn2,
-             self.last_frame_stats) = _fusion_frame(
+            (self.vol, self.warpfield, new_v, new_n, new_m, n_verts, wv2,
+             wn2, self.last_frame_stats) = _fusion_frame(
                 self.vol, self.warpfield, c.vertices, c.normals, c.mask,
                 depth_mm, self.poses[-1], dp=dp, intr=p.intr,
                 config=self.tsdf_config,
                 solve_enabled=self.frame_counter > dp.fusion_warmup_frames)
             self.canonical = Frame(self.frame_counter, new_v, new_n, new_m)
             self.canonical_warped = Frame(self.frame_counter, wv2, wn2, new_m)
-            self.mesh_vertices = None  # the soup on demand (mesh())
+            self.live = self.canonical_warped
+            # the unique edge vertices leave the soup to mesh()
+            self.mesh_vertices = (None if dp.corr_unique_edges
+                                  else (new_v, n_verts))
             self.last_solve_stats = self.last_frame_stats.solve
             self.frame_counter += 1
             return True
-        self.poses.append(self.poses[-1])  # identity (dyn_fusion.cpp:102)
-        (self.vol, self.warpfield, wv, wn, (live_v, n_live),
+
+        parity = self.mode == "parity"
+        if parity:
+            self.poses.append(self.poses[-1])  # identity (dyn_fusion.cpp:102)
+        else:
+            self._fixed_track_pose(depth_mm)
+        if self._fg_enabled():
+            c, cmult = self._fg_canonical, self._fg_mult
+        else:
+            c, cmult = self.canonical, self.canonical_mult
+        (self.vol, self.warpfield, wv, wn, live, mesh,
          self.last_frame_stats) = _nonrigid_frame(
-            self.vol, self.warpfield, c.vertices, c.mask, depth_mm,
-            self.poses[-1], dp=dp, intr=p.intr, config=self.tsdf_config,
-            canonical_mult=self.canonical_mult)
+            self.vol, self.warpfield, c.vertices, c.normals, c.mask,
+            depth_mm, self.poses[-1], dp=dp, intr=p.intr,
+            config=self.tsdf_config, parity=parity, canonical_mult=cmult)
         self.canonical_warped = Frame(c.idx, wv, wn, c.mask)
-        live_m = torch.arange(live_v.shape[0], device=live_v.device) < n_live
-        self.live = Frame(self.frame_counter, live_v, live_v, live_m)
+        self.live = Frame(self.frame_counter, *live)
         # the unique edge vertices leave the soup to mesh()
-        self.mesh_vertices = (None if dp.corr_unique_edges
-                              else (live_v, n_live))
+        self.mesh_vertices = (None if dp.corr_unique_edges and parity
+                              else mesh)
         self.last_solve_stats = self.last_frame_stats.solve
+        if not parity:
+            # the next frame's ICP reference: the model raycast from the new
+            # pose (KinFu::operator()'s raycast stage)
+            pts, nrm = tv.raycast(self.vol, self.poses[-1], p.intr,
+                                  (p.rows, p.cols), self.tsdf_config)
+            self.prev_pyr = icp.build_pyramids(pts, nrm, self.levels)
         self.frame_counter += 1
         return True
 
     def mesh(self):
-        """The last extracted triangle soup (vertex buffer, count); in
-        fusion mode and with corr_unique_edges marching cubes runs on demand
-        on the retained volume."""
+        """The last extracted triangle soup (vertex buffer, count); with
+        unique edge vertices (parity and fusion mode) marching cubes runs
+        on demand on the retained volume."""
         if self.mesh_vertices is None:
             v, n, _ = self._marching_cubes()
             self.mesh_vertices = (v, n)
         return self.mesh_vertices
 
-    def warped_cloud(self, unique: bool = False):
-        """Current warped canonical vertices and mask: at unique-vertex
-        granularity, or expanded back to the frame-0 soup order (fusion
+    def _full_canonical_warped(self) -> Frame:
+        """canonical_warped over the full canonical: with foreground
+        tracking the frame warps only the box, so the full canonical is
+        warped here, on demand (DQB; its background sees ~zero node weight
+        and stays put)."""
+        if not self._fg_enabled():
+            return self.canonical_warped
+        c = self.canonical
+        wv, wn = wfield.warp_points_normals(self.warpfield, c.vertices,
+                                            c.normals)
+        return Frame(c.idx, wv, wn, c.mask)
+
+    def _expand_to_soup(self, frame: Frame) -> Frame:
+        """A unique-granularity frame in the frame-0 soup's order (fusion
         mode's canonical is the unique set already)."""
-        f = self.canonical_warped
-        if unique or self.soup_inverse is None:
-            return f.vertices, f.mask
-        idx = torch.clamp_max(self.soup_inverse, f.vertices.shape[0] - 1)
-        v = torch.where(self.soup_mask[:, None], f.vertices[idx.long()], 0.0)
-        return v, self.soup_mask
+        if self.soup_inverse is None:
+            return frame
+        idx = torch.clamp_max(self.soup_inverse,
+                              frame.vertices.shape[0] - 1).long()
+        m = self.soup_mask[:, None]
+        return Frame(frame.idx, torch.where(m, frame.vertices[idx], 0.0),
+                     torch.where(m, frame.normals[idx], 0.0), self.soup_mask)
+
+    def get_canonical_warped_to_live(self) -> Frame:
+        """The full canonical warped to the live frame, in soup order."""
+        return self._expand_to_soup(self._full_canonical_warped())
+
+    def warped_cloud(self, unique: bool = False):
+        """Current warped canonical vertices and mask over the full
+        canonical: at unique-vertex granularity, or expanded back to the
+        frame-0 soup order."""
+        f = self._full_canonical_warped()
+        if not unique:
+            f = self._expand_to_soup(f)
+        return f.vertices, f.mask

@@ -41,6 +41,14 @@ def _stage(name: str):
     return torch.profiler.record_function(f"rigid/{name}")
 
 
+def pull(res) -> np.ndarray:
+    """((R, t), ok) of an ICP -> the packed host array (R (9), t (3), ok):
+    one read of 13 floats."""
+    (R, t), ok = res
+    return torch.cat([R.reshape(-1), t,
+                      ok.to(torch.float32)[None]]).cpu().numpy()
+
+
 class KinFu:
     """Rigid fusion engine. Call with (H, W) integer mm depth images (numpy
     or tensor, uint16 or int32)."""
@@ -115,22 +123,26 @@ class KinFu:
         the rescue tier where the stencil system went degenerate. Returns
         the packed (R (9), t (3), ok) on the host: one read per tier run."""
         p = self.params
-        kw = dict(iters=p.icp_iter_num, dist_thres=p.icp_dist_thres,
-                  angle_thres=p.icp_angle_thres)
-
-        def pull(res):
-            (R, t), ok = res
-            return torch.cat([R.reshape(-1), t,
-                              ok.to(torch.float32)[None]]).cpu().numpy()
-
         packed = None
         if p.icp_assoc == "stencil":
             packed = pull(icp.estimate_transform_stencil(
-                curr_pyr, prev_pyr, p.intr, radii=p.icp_stencil_radii, **kw))
+                curr_pyr, prev_pyr, p.intr, radii=p.icp_stencil_radii,
+                **self._icp_kw()))
         if packed is None or packed[12] == 0.0:
-            packed = pull(icp.estimate_transform(curr_pyr, prev_pyr, p.intr,
-                                                 **kw))
+            packed = self._track_gather(curr_pyr, prev_pyr)
         return packed
+
+    def _icp_kw(self) -> dict:
+        p = self.params
+        return dict(iters=p.icp_iter_num, dist_thres=p.icp_dist_thres,
+                    angle_thres=p.icp_angle_thres)
+
+    def _track_gather(self, curr_pyr, prev_pyr) -> np.ndarray:
+        """The gather ICP alone (rigid/icp.estimate_transform), packed as
+        `_track` packs it."""
+        return pull(icp.estimate_transform(curr_pyr, prev_pyr,
+                                           self.params.intr,
+                                           **self._icp_kw()))
 
     def _push_pose(self, packed: np.ndarray) -> None:
         """pose = pose * increment (kinfu.cpp:194), on the host."""

@@ -1,8 +1,9 @@
 """Benchmark harness: end-to-end frames/s and accuracy.
 
-Port of run_rigid_benchmark, run_benchmark and run_fusion_benchmark from
-dynfu_tpu/utils/benchmarks.py, with the same workloads and JSON fields, and
-a `device` field naming the card (or the CPU) they ran on.
+Port of run_rigid_benchmark, run_benchmark, run_fusion_benchmark and
+run_umbrella_benchmark from dynfu_tpu/utils/benchmarks.py, with the same
+workloads and JSON fields, and a `device` field naming the card (or the
+CPU) they ran on.
 
 run_rigid_benchmark: the rigid KinFu pipeline on a depth-diverse scene of
 five spheres (0.9-2.3 m) seen by a camera moving (2, -1, 3) mm per frame, at
@@ -35,6 +36,10 @@ spheres give the ICP background to track, and the deforming sphere breathes
 (its radius oscillates) instead of translating, so that camera motion and
 deformation are separable; only the breathing sphere is scored, in the
 world (volume) frame.
+
+run_umbrella_benchmark: the synthetic Kinect-v1 umbrella sequence
+(io/kinect_sim.py) in parity mode, at >= 384^3 with foreground tracking
+(see its docstring).
 """
 
 from __future__ import annotations
@@ -239,6 +244,21 @@ def movingcam_frame(i: int, camera_motion: float, rows: int = 480,
                          np.asarray((0.0, camera_motion * i, 0.0)), rows, cols)
 
 
+def breathing_err_mm(verts: np.ndarray, i: int) -> float:
+    """Median |distance to the breathing sphere's centre - its radius at
+    frame i| (mm) over volume-frame vertices of the moving-camera scene,
+    scoring the deforming sphere only: within 1.5 radii of its centre and
+    outside every anchor's own 1.5-radius neighbourhood."""
+    vol_t = np.asarray((-1.5, -1.5, 0.5))
+    d = np.linalg.norm(verts - (np.asarray((0.0, 0.0, 1.5)) - vol_t),
+                       axis=-1)
+    keep = d < 0.5 * 1.5
+    for ac, ar in FUSION_ANCHORS:
+        keep &= np.linalg.norm(verts - (np.asarray(ac) - vol_t),
+                               axis=-1) > ar * 1.5
+    return float(np.median(np.abs(d[keep] - _breathing_radius(i)))) * 1e3
+
+
 def fusion_params(volume_dims: int, rows: int = 480, cols: int = 640,
                   rotations: bool = False, camera_motion: float = 0.0,
                   similarity_reg: bool = False) -> DynFuParams:
@@ -274,28 +294,16 @@ def run_fusion_benchmark(volume_dims: int = 512, frames: int = 12,
     n_total = warmup + frames
     anchors = FUSION_ANCHORS if camera_motion != 0.0 else []
 
-    def radius_at(i):
-        return _breathing_radius(i) if anchors else radius
-
-    def center_at(i):
-        return (0.0, 0.0, 1.5) if anchors else (0.004 * i, 0.0, 1.5)
-
     _frames = [movingcam_frame(i, camera_motion, rows, cols) if anchors
                else bench_frame(i, rows, cols) for i in range(n_total)]
 
     def median_err(verts, mask, i):
-        center = np.asarray(center_at(i)) - vol_t
         v = verts[mask].cpu().numpy()
-        d = np.linalg.norm(v - center, axis=-1)
         if anchors:
-            # score the deforming sphere only: within 1.5 radii of it and
-            # outside every anchor's own 1.5-radius neighbourhood
-            keep = d < radius * 1.5
-            for ac, ar in anchors:
-                keep &= np.linalg.norm(v - (np.asarray(ac) - vol_t),
-                                       axis=-1) > ar * 1.5
-            d = d[keep]
-        return float(np.median(np.abs(d - radius_at(i)))) * 1e3
+            return breathing_err_mm(v, i)
+        center = np.asarray((0.004 * i, 0.0, 1.5)) - vol_t
+        d = np.linalg.norm(v - center, axis=-1)
+        return float(np.median(np.abs(d - radius))) * 1e3
 
     for i in range(warmup):
         engine(_frames[i])
@@ -342,5 +350,104 @@ def run_fusion_benchmark(volume_dims: int = 512, frames: int = 12,
         "corr_dropped": int(fs.corr_dropped),
         "mc_dropped": mc_dropped,
         "n_captured": n_captured,
+        "device": _device_name(engine.device),
+    }
+
+
+def umbrella_params(volume_dims: int = 512, mode: str = "parity",
+                    rows: int = 480, cols: int = 640,
+                    foreground: bool = True) -> DynFuParams:
+    """run_umbrella_benchmark's parameters: DynFuParams.caps_for_volume,
+    and at >= 384^3 in parity mode the capacities the scene needs and the
+    foreground box."""
+    intr = Intr(525.0, 525.0, cols / 2 - 0.5, rows / 2 - 0.5)
+    fusion = mode == "fusion"
+    caps = DynFuParams.caps_for_volume(volume_dims, fusion=fusion)
+    params = DynFuParams(
+        kinfu=KinFuParams(rows=rows, cols=cols, intr=intr,
+                          volume_dims=(volume_dims,) * 3),
+        solver_rotations=fusion, **caps)
+    if caps.get("corr_unique_edges") and volume_dims >= 384:
+        # the capacities the scene needs: the wall and floor emit ~512k
+        # unique edge vertices at 512^3, and a column of the z-parallel wall
+        # carries up to Z edge bits. With `foreground` the tracked set is
+        # the first 2^15 vertices of the box that bounds the canopy and
+        # handle sweep in the volume frame, short of the wall (z_cam 2.15 ->
+        # z_vol 1.65) and the floor (y_cam 0.55 -> y_vol 2.05; the handle
+        # tip reaches y_vol ~2.02)
+        params = dataclasses.replace(
+            params, max_edge_verts=1 << 19, edge_col_budget=256,
+            fg_aabb=((0.9, 0.8, 0.25), (2.1, 2.045, 1.6))
+            if foreground else None,
+            max_fg_verts=(1 << 15) if foreground else 0)
+    return params
+
+
+def run_umbrella_benchmark(volume_dims: int = 512, frames: int = 8,
+                           mode: str = "parity", rows: int = 480,
+                           cols: int = 640, seq_frames: int = 16,
+                           warmup: int = 3, foreground: bool = True, *,
+                           device="cuda") -> dict:
+    """The umbrella sequence (io/kinect_sim.py): a breathing scalloped
+    canopy on a nodding handle before a wall and a floor, seen through the
+    Kinect-v1 sensor model, with the exact geometry known at every phase.
+    `warmup` frames, then `frames` timed frames ended by the full warped
+    cloud and a synchronize.
+
+    Metric: the visible-surface depth error. The warped canonical cloud is
+    projected into the live camera; per pixel the nearest projected
+    vertex's depth is held against the clean render of the last frame's
+    phase (median and 90th percentile, over `coverage_px` pixels that have
+    both). Beside the source's fields: the node count, and the canonical
+    and the last frame's live vertices that the solve tracks (the
+    foreground box's, with `foreground`)."""
+    from dynfu_tpu_torch.io import kinect_sim
+
+    intr = Intr(525.0, 525.0, cols / 2 - 0.5, rows / 2 - 0.5)
+    params = umbrella_params(volume_dims, mode, rows, cols, foreground)
+    engine = DynFusion(params, device=device, mode=mode)
+    _frames = [kinect_sim.umbrella_frame(i, frames=seq_frames, h=rows,
+                                         w=cols)
+               for i in range(warmup + frames)]
+    for i in range(warmup):
+        engine(_frames[i])
+    sync(engine.warped_cloud()[0])
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + frames):
+        engine(_frames[i])
+    wv, wm = engine.warped_cloud()
+    sync(wv)
+    dt = (time.perf_counter() - t0) / frames
+
+    z_clean = kinect_sim.render_umbrella((warmup + frames - 1) / seq_frames,
+                                         h=rows, w=cols)
+    cam = wv[wm].cpu().numpy() + engine.vol.pose_t.cpu().numpy()
+    z = cam[:, 2]
+    u = np.round(intr.fx * cam[:, 0] / z + intr.cx).astype(int)
+    vv = np.round(intr.fy * cam[:, 1] / z + intr.cy).astype(int)
+    inb = (u >= 0) & (u < cols) & (vv >= 0) & (vv < rows) & (z > 0.1)
+    zmin = np.full((rows, cols), np.inf)
+    np.minimum.at(zmin, (vv[inb], u[inb]), z[inb])
+    got = np.isfinite(zmin) & np.isfinite(z_clean)
+    err_mm = np.abs(zmin[got] - z_clean[got]) * 1e3
+    fs = engine.last_frame_stats
+    tracked = (engine._fg_canonical if engine._fg_enabled()
+               else engine.canonical)
+    # unrounded (the JAX harness rounds; the numbers are the same fields,
+    # and the nodes and the canonical and live vertices the frame tracks)
+    return {
+        "metric": f"umbrella_{mode}_{volume_dims}cube",
+        "value": 1.0 / dt,
+        "unit": "frames/s",
+        "vs_baseline": 1.0 / dt / TARGET_FPS,
+        "frame_ms": dt * 1e3,
+        "median_visible_err_mm": float(np.median(err_mm)),
+        "p90_visible_err_mm": float(np.percentile(err_mm, 90)),
+        "coverage_px": int(got.sum()),
+        "mc_dropped": int(fs.mc_dropped),
+        "corr_dropped": int(fs.corr_dropped),
+        "nodes": int(engine.warpfield.count),
+        "tracked_vertices": int(tracked.mask.sum()),
+        "live_vertices": int(engine.live.mask.sum()),
         "device": _device_name(engine.device),
     }

@@ -3,8 +3,8 @@
 The JAX engine's state arrives as plain numpy arrays and frozen dataclasses
 (this module imports neither jax nor dynfu_tpu): the dataclasses convert
 field by field by name, and the arrays become tensors on the port's device.
-The rigid, parity and fusion tests use it to start the port's frame k+1
-from the JAX engine's state after frame k.
+The rigid, parity, fixed and fusion tests use it to start the port's frame
+k+1 from the JAX engine's state after frame k.
 """
 
 from __future__ import annotations
@@ -89,15 +89,20 @@ def load_kinfu_state(engine: KinFu, *, vol, poses, prev_pyr,
 def load_engine_state(engine: DynFusion, *, vol, wf, canonical,
                       frame_counter: int, poses, soup_inverse=None,
                       soup_mask=None, canonical_mult=None,
-                      canonical_warped=None, prev_live_pyr=None) -> DynFusion:
+                      canonical_warped=None, prev_live_pyr=None,
+                      fg_canonical=None, fg_mult=None,
+                      prev_pyr=None) -> DynFusion:
     """Install the JAX engine's state after a frame into `engine`.
 
     vol = (tsdf, weight, pose_r, pose_t), wf = (pos, dqs, w, mask, count),
-    canonical and canonical_warped = (idx, vertices, normals, mask) (the
-    warped one defaults to the canonical); poses a list of (R, t). The soup
-    dedup state (soup_inverse, soup_mask, canonical_mult) exists in parity
-    mode only; a fusion-mode canonical is the unique edge vertex set itself.
-    prev_live_pyr is the camera tracking's reference pyramid."""
+    canonical, canonical_warped and fg_canonical = (idx, vertices, normals,
+    mask) (the warped one defaults to the canonical); poses a list of (R,
+    t). The soup dedup state (soup_inverse, soup_mask, canonical_mult)
+    exists in parity and fixed mode only; a fusion-mode canonical is the
+    unique edge vertex set itself. fg_canonical and fg_mult are foreground
+    tracking's canonical and soup multiplicities. prev_live_pyr is fusion
+    camera tracking's reference pyramid, prev_pyr fixed mode's ICP
+    reference (the raycast pyramid), each [(points, normals)]."""
     dev = engine.device
     engine.vol = volume(*vol, device=dev)
     engine.warpfield = warpfield(*wf, device=dev)
@@ -108,8 +113,13 @@ def load_engine_state(engine: DynFusion, *, vol, wf, canonical,
         engine.soup_inverse = _t(soup_inverse, dev, torch.int32)
         engine.soup_mask = _t(soup_mask, dev, torch.bool)
         engine.canonical_mult = _t(canonical_mult, dev, torch.float32)
+    if fg_canonical is not None:
+        engine._fg_canonical = frame(*fg_canonical, device=dev)
+        engine._fg_mult = _t(fg_mult, dev, torch.float32)
     if prev_live_pyr is not None:
         engine.prev_live_pyr = pyramid(prev_live_pyr, dev)
+    if prev_pyr is not None:
+        engine.prev_pyr = pyramid(prev_pyr, dev)
     engine.frame_counter = int(frame_counter)
     engine.poses = _poses(poses)
     return engine

@@ -18,6 +18,11 @@ camera moving M m per frame) — runs frame 0 and three warm-up frames, then
    kernels per frame; the idle share (1 - kernel time / wall_ms); and the
    ten kernels with the most device time (names cut to 120 characters).
 
+With --camera-motion it also reports, for every frame, the tracked camera
+against the synthetic truth (the camera at (0, M i, 0), not rotating):
+the position error in mm and the rotation angle in degrees
+(`camera_track`).
+
 Prints one JSON object (and writes it to FILE with --out).
 The profiled frames run slower than wall_ms (the profiler's own cost), so
 stage host times are shares, not frame times. `profile_engine` is shared
@@ -31,6 +36,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from dynfu_tpu_torch.engine.dynfusion import DynFusion
@@ -106,6 +112,25 @@ def profile_engine(eng, frames, warm: int, n: int, prefix: str,
     }
 
 
+def camera_track(poses, motion: float) -> list:
+    """Per frame i: the tracked camera position minus the true one (0,
+    motion * i, 0) in mm, and the tracked rotation's angle in degrees (the
+    true camera does not rotate)."""
+    rows = []
+    for i, (R, t) in enumerate(poses):
+        R = np.asarray(R, np.float64)
+        err = (np.asarray(t, np.float64) - (0.0, motion * i, 0.0)) * 1e3
+        # the angle from both the skew and the symmetric part: arccos alone
+        # loses the small angles
+        s = np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                            R[1, 0] - R[0, 1]]) / 2.0
+        c = (np.trace(R) - 1.0) / 2.0
+        rows.append(dict(frame=i, t_err_mm=err.tolist(),
+                         t_err_norm_mm=float(np.linalg.norm(err)),
+                         rot_deg=float(np.degrees(np.arctan2(s, c)))))
+    return rows
+
+
 def write(out: dict, path) -> None:
     """Print the JSON object, and write it to `path` if one is given."""
     text = json.dumps(out)
@@ -134,6 +159,8 @@ def main() -> int:
     out = profile_engine(eng, frames, 4, n, "fusion/", STAGES)
     out.update(dims=args.dims, camera_motion=m,
                nodes=int(eng.warpfield.count))
+    if m:
+        out["camera_track"] = camera_track(eng.poses, m)
     write(out, args.out)
     return 0
 

@@ -1,7 +1,8 @@
 """TSDF volume: creation, clearing, projective integration and raycast.
 
 Port of dynfu_tpu/volume/tsdf.py (the reference's TsdfVolume /
-TsdfIntegrator / TsdfRaycaster, tsdf_volume.cu:43-386). Storage is the
+TsdfIntegrator / TsdfRaycaster and its cloud and normal extraction,
+tsdf_volume.cu:43-679). Storage is the
 same: tsdf float16 in [-1, 1], weight uint8, layout (X, Y, Z) with z
 fastest.
 
@@ -25,6 +26,7 @@ import torch
 from dynfu_tpu_torch.core import se3
 from dynfu_tpu_torch.core.camera import Intr
 from dynfu_tpu_torch.kernels import resolve_device
+from dynfu_tpu_torch.ops import compaction
 
 # voxels per integrate chunk: bounds the float32 temporaries at large volumes
 _CHUNK_VOXELS = 1 << 24
@@ -317,3 +319,93 @@ def raycast(vol: TsdfVolume, camera_pose, intr: Intr, shape: Tuple[int, int],
     ok = (hit & ~torch.isnan(normal.sum(-1)))[..., None]
     return (torch.where(ok, (vertex - org) @ R, torch.nan),
             torch.where(ok, normal @ R, torch.nan))
+
+
+# --- cloud and normal extraction (FullScan6 + ExtractNormals,
+# tsdf_volume.cu:423-679) ---------------------------------------------------
+
+
+def extract_cloud(vol: TsdfVolume, config: TsdfConfig,
+                  capacity: int = 1 << 18):
+    """Zero-crossing points along the +x, +y and +z edges, world frame
+    (FullScan6, tsdf_volume.cu:460-530).
+
+    An edge emits where both endpoint weights are nonzero, neither tsdf is
+    exactly 1 and the signs differ: p = (V |Fn| + Vn |F|) / (|F| + |Fn|)
+    between VOXEL CENTRES (+0.5). As in the reference, +x and +y crossings
+    in the last z layer are never emitted. Points come in the source's
+    order (the x edges, then y, then z, each in (x, y, z) order); the first
+    `capacity` are kept, and only they are interpolated. Returns (points
+    (capacity, 3), mask (capacity,))."""
+    X, Y, Z = config.dims
+    dev = vol.tsdf.device
+    F = vol.tsdf.to(torch.float32)
+    valid = (vol.weight != 0) & (F != 1.0)
+    oks, shapes = [], []
+    for axis in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[axis], hi[axis] = slice(0, -1), slice(1, None)
+        F0, F1 = F[tuple(lo)], F[tuple(hi)]
+        ok = (valid[tuple(lo)] & valid[tuple(hi)]
+              & (((F0 > 0) & (F1 < 0)) | ((F0 < 0) & (F1 > 0))))
+        if axis != 2:
+            ok[:, :, Z - 1] = False
+        oks.append(ok.reshape(-1))
+        shapes.append(ok.shape)
+    flat = torch.cat(oks)
+    total = flat.numel()
+    idx = compaction.rank_select(flat, capacity, total)
+    mask = idx < total
+
+    # each kept edge: its axis, its voxel and the neighbour along the axis
+    sizes = torch.tensor([o.numel() for o in oks], device=dev)
+    starts = torch.cumsum(sizes, 0) - sizes
+    axis = torch.clamp(torch.bucketize(idx, starts, right=True) - 1, 0, 2)
+    local = torch.where(mask, idx - starts[axis], 0)
+    sy = torch.tensor([s[1] for s in shapes], device=dev)[axis]
+    sz = torch.tensor([s[2] for s in shapes], device=dev)[axis]
+    i = torch.div(local, sy * sz, rounding_mode="floor")
+    j = torch.div(local, sz, rounding_mode="floor") - i * sy
+    k = local - (i * sy + j) * sz
+    ijk = torch.stack([i, j, k], -1)
+    step = torch.nn.functional.one_hot(axis, 3)
+    nb = ijk + step
+    f0 = F[ijk[:, 0], ijk[:, 1], ijk[:, 2]]
+    f1 = F[nb[:, 0], nb[:, 1], nb[:, 2]]
+
+    vs = torch.tensor(config.voxel_size, dtype=torch.float32, device=dev)
+    base = (ijk.to(torch.float32) + 0.5) * vs
+    b = base.gather(1, axis[:, None])[:, 0]
+    d_inv = 1.0 / (f0.abs() + f1.abs())
+    interp = (b * f1.abs() + (b + vs[axis]) * f0.abs()) * d_inv
+    pts = torch.where(step.bool(), interp[:, None], base)
+    out = pts @ vol.pose_r.T + vol.pose_t
+    return torch.where(mask[:, None], out, 0.0), mask
+
+
+def extract_normals(vol: TsdfVolume, points: torch.Tensor,
+                    config: TsdfConfig, frame: str = "world") -> torch.Tensor:
+    """TSDF-gradient normals at `points` (ExtractNormals,
+    tsdf_volume.cu:602-679): NaN unless the nearest voxel lies in
+    [2, dims - 2)^3; n = normalize(pose_R grad). With frame="volume" the
+    points are in the volume frame (marching-cubes output) and so are the
+    normals (no pose on either side)."""
+    if frame not in ("world", "volume"):
+        raise ValueError(f"unknown frame {frame!r}")
+    X, Y, Z = config.dims
+    vs = torch.tensor(config.voxel_size, dtype=torch.float32,
+                      device=points.device)
+    vs_inv = 1.0 / vs
+    gradient_delta = vs * config.gradient_delta_factor
+    p_vol = (points if frame == "volume"
+             else (points - vol.pose_t) @ vol.pose_r)  # R^-1 (p - t)
+    # the nearest voxel (round half to even); NaN compares False
+    g = torch.round(p_vol * vs_inv)
+    inside = ((g[..., 0] > 1) & (g[..., 0] < X - 2)
+              & (g[..., 1] > 1) & (g[..., 1] < Y - 2)
+              & (g[..., 2] > 1) & (g[..., 2] < Z - 2))
+    n = _compute_normal(vol.tsdf, p_vol, vs_inv, gradient_delta)
+    if frame == "world":
+        n = n @ vol.pose_r.T
+    return torch.where(inside[..., None], n, torch.nan)

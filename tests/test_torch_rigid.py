@@ -49,6 +49,7 @@ from test_icp import H, W, apply_inv_transform, heightfield_depth, make_frame
 from test_icp import INTR as JINTR
 from test_pipeline import (CENTER, RADIUS, SCENE, small_dynfu_params,
                            small_kinfu_params, sphere_depth)
+from test_torch_fusion import _jax_knn_through_pallas
 
 
 # small tensors: one intra-op thread avoids contending with XLA's thread
@@ -340,15 +341,6 @@ def test_kinfu_reset_is_immediate(jax_kinfu):
 # --- DynFusion: what the port refuses, and the camera tracking ------------
 
 
-def test_fg_aabb_raises():
-    """Foreground tracking is not ported: parity mode refuses fg_aabb."""
-    params = convert.params(dataclasses.replace(
-        small_dynfu_params(), fg_aabb=((0.0, 0.0, 0.0), (1.0, 1.0, 0.6)),
-        max_fg_verts=1 << 13))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DynFusion(params, device="cpu")
-
-
 def test_fusion_track_pose_matches_jax():
     """One camera-tracking step of fusion mode (_fusion_track_pose) from
     the same state: the deforming-region mask equal, the pose within 1e-4
@@ -592,3 +584,69 @@ def test_unique_edge_frame_from_jax_state(jax_run):
                                atol=1e-4)
     verts, n = port.mesh()
     assert int(n) > 0 and torch.isfinite(verts[:int(n)]).all()
+
+
+# foreground tracking: the right half of the sphere in the volume frame; the
+# box holds more canonical and live vertices than max_fg_verts
+FG_PARAMS = dataclasses.replace(
+    small_dynfu_params(), fg_aabb=((0.5, 0.25, 0.25), (0.75, 0.75, 0.75)),
+    max_fg_verts=256)
+
+
+def test_fg_aabb_raises(capsys):
+    """Foreground tracking (fg_aabb, max_fg_verts) in parity mode against
+    JAX. Frame 0: the nodes are sampled from the box only, and _fg_compact
+    keeps the deduplicated canonical's first max_fg_verts box vertices in
+    index order (the same vertices and multiplicities; both engines print
+    the overflow). Frame 1 from JAX's state after frame 0: the live soup
+    compacted to the box by rank_select, index for index; the box's
+    overflow raises corr_dropped by fg_dropped, to JAX's count; the same
+    node count; warped_cloud(), the full canonical warped on demand in soup
+    order, within 1e-4 m. (The test once checked that the port refused
+    fg_aabb; it keeps its name.)"""
+    # frame 0 runs no k-NN: its programs are jax_run's
+    jax_eng = JaxDynFusion(FG_PARAMS)
+    jax_eng(SLICE_FRAMES[0])
+    jfg = jax_eng._fg_canonical
+    st = dict(_state(jax_eng), fg_mult=np.array(jax_eng._fg_mult),
+              fg_canonical=(jfg.idx, np.array(jfg.vertices),
+                            np.array(jfg.normals), np.array(jfg.mask)))
+    frame0 = (jfg, np.array(jax_eng._fg_mult), int(jax_eng.warpfield.count),
+              np.array(jax_eng.warpfield.pos))
+    with _jax_knn_through_pallas():
+        jax_eng(SLICE_FRAMES[1])
+        jv, jm = jax_eng.warped_cloud()
+    port = _port(FG_PARAMS)
+    port(SLICE_FRAMES[0])
+    assert capsys.readouterr().out.count("fg canonical overflow") == 2
+    jfg, jmult, n, jpos = frame0
+    tfg = port._fg_canonical
+    assert bool(tfg.mask.all())  # the box overflowed the capacity
+    np.testing.assert_array_equal(tfg.mask, np.asarray(jfg.mask))
+    np.testing.assert_array_equal(tfg.vertices, np.asarray(jfg.vertices))
+    np.testing.assert_array_equal(port._fg_mult, jmult)
+    assert int(port.warpfield.count) == n > 3
+    np.testing.assert_array_equal(port.warpfield.pos, jpos)
+    lo, hi = (np.asarray(a) for a in FG_PARAMS.fg_aabb)
+    nodes = port.warpfield.pos[:n].numpy()
+    assert ((nodes >= lo) & (nodes < hi)).all()
+
+    port = convert.load_engine_state(_port(FG_PARAMS), **st)
+    assert port(SLICE_FRAMES[1]) is True
+    np.testing.assert_array_equal(port.live.vertices,
+                                  np.asarray(jax_eng.live.vertices))
+    np.testing.assert_array_equal(port.live.mask,
+                                  np.asarray(jax_eng.live.mask))
+    verts, count = port.mesh()  # the full live soup
+    full = verts[:int(count)].numpy()
+    fg_dropped = int(((full >= lo) & (full < hi)).all(1).sum()) - 256
+    got = int(port.last_frame_stats.corr_dropped)
+    assert got == int(jax_eng.last_frame_stats.corr_dropped)
+    assert got >= fg_dropped > 0
+    assert int(port.warpfield.count) == int(jax_eng.warpfield.count)
+    v, m = port.warped_cloud()
+    np.testing.assert_array_equal(m, np.asarray(jm))
+    m = np.asarray(jm)
+    assert m.sum() > 2 * 256
+    np.testing.assert_allclose(v.numpy()[m], np.asarray(jv)[m], rtol=0,
+                               atol=1e-4)
