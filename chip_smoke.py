@@ -69,7 +69,21 @@
      graph) on the moving-camera scene, 3 + 12 frames; zero drops, bounds
      1.10 x the JAX package's figures for the same frames, loop and metric
      with the port's formulations (scripts/jax_fixed_reference.py
-     --per-voxel).
+     --per-voxel);
+   - the dataset app 512^3 (cli512): io.cli.main(["run", "data/umbrella",
+     "--volume-dims", "512", "--export-viz", "--out", A]) in this process,
+     A a temporary directory; 16 .pcd, .vtk, .ply and render PNGs each;
+     then "--frames 8 --checkpoint-every 8" into B and "--resume
+     B/checkpoint.npz" into C, whose frames 8-15 .pcd, .ply and .vtk must
+     be byte-equal to A's; then DynFusion at the same parameters over the 16
+     frames uninterrupted against one restored by load_checkpoint after
+     frame 7 (torch.equal on the volume, the warp field and the warped
+     cloud); prints the frame times, DepthLoader.native and each frame's
+     mc_dropped and corr_dropped. The CLI's default parameters apply no
+     caps_for_volume preset, so the row drops cells: no accuracy bound;
+   - the rigid dataset app 512^3 (cli_rigid512): "run --rigid
+     data/umbrella --volume-dims 512"; 16 pose rows in trajectory.txt,
+     rigid_mesh.ply, 19 stencil launches per ICP the engine ran.
 
 Prints each phase's seconds, the kernels' JSON line, the card's line, then
 as its last line the device JSON. Any failed check raises, and the script
@@ -81,6 +95,7 @@ import inspect
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -232,6 +247,9 @@ PATHS = {
                     "warp_fused", "data_normal"),
     "fixed128": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                  "warp_fused", "data_normal"),
+    "cli512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
+               "warp_fused", "data_normal"),
+    "cli_rigid512": ("fetch_stencil", "pack_triangles"),
 }
 
 
@@ -1406,6 +1424,153 @@ def fixed_phase():
     return got
 
 
+UMBRELLA_DIR = Path(__file__).resolve().parent / "data" / "umbrella"
+CLI_FRAMES, CLI_SPLIT = 16, 8
+
+
+def cli_run(out: Path, *args) -> None:
+    """`dynfu-torch run` over data/umbrella at 512^3, in this process (so
+    that the launch counters can be read), into `out` (never the default
+    <dataset>/out, which lies inside the checkout)."""
+    from dynfu_tpu_torch.io import cli
+
+    argv = ["run", str(UMBRELLA_DIR), "--volume-dims", "512", *args,
+            "--out", str(out)]
+    require(cli.main(argv) == 0, f"dynfu-torch {' '.join(argv)} failed")
+
+
+def cli_inprocess(tmp: Path) -> dict:
+    """DynFusion at the CLI's 512^3 parameters over the 16 frames without
+    interruption, against one restored by load_checkpoint from the
+    save_checkpoint after frame CLI_SPLIT - 1: the same bits in the volume,
+    the warp field and the warped cloud. Returns the uninterrupted run's
+    frame times (engine call and warped cloud, synchronized) and each
+    frame's drop counters."""
+    from dynfu_tpu_torch.io import app, meshio
+    from dynfu_tpu_torch.io.native_loader import DepthLoader
+    from dynfu_tpu_torch.utils.checkpoint import load_checkpoint, \
+        save_checkpoint
+
+    depths, _ = meshio.list_dataset(str(UMBRELLA_DIR))
+    with DepthLoader(depths) as loader:
+        native = loader.native
+        frames = [loader[i] for i in range(len(loader))]
+    require(len(frames) == CLI_FRAMES, f"{len(frames)} umbrella frames")
+    params = app.dataset_params(frames[0].shape, 512)
+    eng = DynFusion(params, device=DEV)
+    ckpt = tmp / "inprocess.npz"
+    ms, drops = [], []
+    for i, d in enumerate(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng(d)
+        eng.warped_cloud()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fs = eng.last_frame_stats
+        drops.append(None if fs is None else
+                     [int(fs.mc_dropped), int(fs.corr_dropped)])
+        if i == CLI_SPLIT - 1:
+            save_checkpoint(eng, str(ckpt))
+    res = DynFusion(params, device=DEV)
+    load_checkpoint(res, str(ckpt))
+    require(res.frame_counter == CLI_SPLIT, "restored frame counter")
+    for d in frames[CLI_SPLIT:]:
+        res(d)
+    pairs = [("vol.tsdf", eng.vol.tsdf, res.vol.tsdf),
+             ("vol.weight", eng.vol.weight, res.vol.weight)]
+    pairs += [(f"warpfield.{k}", v, getattr(res.warpfield, k))
+              for k, v in eng.warpfield._asdict().items()]
+    pairs += [(f"warped_cloud[{j}]", a, b) for j, (a, b) in
+              enumerate(zip(eng.warped_cloud(), res.warped_cloud()))]
+    for name, a, b in pairs:
+        require(torch.equal(a, b), f"cli512: resumed {name} differs")
+    return {"loader_native": native, "frame_ms": ms,
+            "mc_dropped_corr_dropped": drops,
+            "nodes": int(eng.warpfield.count),
+            "bitwise_equal": [name for name, _, _ in pairs]}
+
+
+def cli512_phase():
+    """`dynfu-torch run data/umbrella --volume-dims 512 --export-viz` (the
+    main path), then a run of CLI_SPLIT frames that checkpoints and its
+    resumption over the rest, whose exports must be byte-equal to the whole
+    run's, then the in-process resume against the uninterrupted engine.
+    The CLI's default parameters apply no caps_for_volume preset at 512^3
+    (2^14 cells, 2^16 vertices), so this row drops cells, as the JAX app
+    does: no accuracy bound."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        a, b, c = tmp / "a", tmp / "b", tmp / "c"
+        t0 = time.perf_counter()
+        _, got = run_path("cli512", lambda: cli_run(a, "--export-viz"))
+        wall = time.perf_counter() - t0
+        counts = {pat: len(list(a.glob(pat))) for pat in
+                  ("pcl_canonical_to_live*.pcd", "*_tsdf_mesh.vtk",
+                   "*_tsdf_mesh.ply", "render*.png")}
+        print(f"cli512: artifacts {json.dumps(counts)}, {wall:.1f} s with "
+              "the kernel checks", flush=True)
+        require(all(n == CLI_FRAMES for n in counts.values()),
+                f"cli512: artifacts {counts}")
+        cli_run(b, "--frames", str(CLI_SPLIT), "--checkpoint-every",
+                str(CLI_SPLIT))
+        cli_run(c, "--resume", str(b / "checkpoint.npz"))
+        for i in range(CLI_SPLIT, CLI_FRAMES):
+            for name in (f"pcl_canonical_to_live{i}.pcd",
+                         f"{i}_tsdf_mesh.ply", f"{i}_tsdf_mesh.vtk"):
+                require((c / name).read_bytes() == (a / name).read_bytes(),
+                        f"cli512: resumed {name} differs")
+        require(not (c / "pcl_canonical_to_live0.pcd").exists(),
+                "cli512: the resumed run wrote frame 0")
+        out = cli_inprocess(tmp)
+    ms = out["frame_ms"]
+    print(f"cli512: frame_ms {json.dumps(ms)} (median of frames 1-15 "
+          f"{float(np.median(ms[1:]))}), DepthLoader.native "
+          f"{out['loader_native']}, per frame [mc_dropped, corr_dropped] "
+          f"{json.dumps(out['mc_dropped_corr_dropped'])}, nodes "
+          f"{out['nodes']}, resumed bit-equal: {out['bitwise_equal']}",
+          flush=True)
+    return got
+
+
+def cli_rigid512_phase():
+    """`dynfu-torch run --rigid data/umbrella --volume-dims 512`: 16 pose
+    rows, the mesh, and 19 stencil launches per ICP the engine ran (the
+    ICPs counted at rigid/icp.estimate_transform_stencil)."""
+
+    stencil_icp = icp.estimate_transform_stencil
+    icps = []
+
+    def counted(*a, **kw):
+        icps.append(1)
+        return stencil_icp(*a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp) / "d"
+        icp.estimate_transform_stencil = counted
+        try:
+            t0 = time.perf_counter()
+            _, got = run_path("cli_rigid512", lambda: cli_run(d, "--rigid"))
+            wall = time.perf_counter() - t0
+        finally:
+            icp.estimate_transform_stencil = stencil_icp
+        traj = np.loadtxt(d / "trajectory.txt")
+        mesh = (d / "rigid_mesh.ply").read_text().splitlines()[:4]
+    print(f"cli_rigid512: {len(icps)} ICPs, {got['fetch_stencil']} stencil "
+          f"launches, trajectory {list(traj.shape)}, final t "
+          f"{traj[-1, 9:].tolist()}, mesh header {mesh}, {wall:.1f} s with "
+          "the kernel checks", flush=True)
+    require(traj.shape == (CLI_FRAMES, 12),
+            f"cli_rigid512: trajectory shape {traj.shape}")
+    require(mesh[0] == "ply" and int(mesh[2].split()[-1]) > 0,
+            "cli_rigid512: rigid_mesh.ply has no vertices")
+    want = len(icps) * STENCIL_PER_ICP
+    require(len(icps) > 0 and got["fetch_stencil"] == want,
+            f"cli_rigid512: {got['fetch_stencil']} stencil launches, not "
+            f"{want}")
+    return got
+
+
 def main() -> int:
     smi = nvidia_smi()
     print(f"card: {smi}", flush=True)
@@ -1424,7 +1589,9 @@ def main() -> int:
               ("movingcam_simreg", simreg_phase),
               ("fusion_t512", fusion_t512_phase),
               ("umbrella512", umbrella_phase),
-              ("fixed128", fixed_phase)]
+              ("fixed128", fixed_phase),
+              ("cli512", cli512_phase),
+              ("cli_rigid512", cli_rigid512_phase)]
     out = {}
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -757,3 +757,14 @@ class DynFusion(KinFu):
         if not unique:
             f = self._expand_to_soup(f)
         return f.vertices, f.mask
+
+    def render(self, flag: int = 0) -> torch.Tensor:
+        """Offline render of the current volume from the current camera
+        pose (replaces the reference's OpenCV Viz window): the per-ray
+        raycast (the source raycasts through its TPU formulations), shaded
+        as KinFu.render shades; prev_pyr (fixed mode's ICP reference) is
+        not touched."""
+        p = self.params
+        pts, nrm = tv.raycast(self.vol, self.poses[-1], p.intr,
+                              (p.rows, p.cols), self.tsdf_config)
+        return self._render(pts, nrm, flag)

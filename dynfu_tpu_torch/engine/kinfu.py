@@ -197,3 +197,23 @@ class KinFu:
                                      max_voxels=max_voxels,
                                      max_verts=max_verts)
         return mesh_to_world(verts[:int(n)], self.vol), int(n)
+
+    # -- rendering (kinfu.cpp:261-316) --------------------------------------
+    def render(self, flag: int = 0) -> torch.Tensor:
+        """Phong render of the reference model view (prev_pyr level 0),
+        (H, W, 3) uint8 (KinFu::renderImage, kinfu.cpp:261-292)."""
+        if self.prev_pyr is None:
+            raise RuntimeError("no frames processed")
+        return self._render(*self.prev_pyr[0], flag)
+
+    def _render(self, pts, nrm, flag: int) -> torch.Tensor:
+        """As the source's code selects: flag 2 the tangent-colour normals,
+        1 and 3 the shaded surface and the tangent colours side by side, any
+        other flag the shaded surface."""
+        light = self.params.light_pose
+        if flag < 1 or flag > 3:
+            return imgproc.render_image_points(pts, nrm, light)
+        if flag == 2:
+            return imgproc.render_tangent_colors(nrm)
+        return torch.cat([imgproc.render_image_points(pts, nrm, light),
+                          imgproc.render_tangent_colors(nrm)], dim=1)

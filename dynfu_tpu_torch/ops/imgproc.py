@@ -1,9 +1,12 @@
-"""Depth-image preprocessing: the subset the engines run.
+"""Depth-image preprocessing and rendering.
 
 Port of compute_dists, bilateral_filter, truncate_depth,
-compute_points_normals, depth_pyramid_down, resize_depth_normals and
-resize_points_normals from dynfu_tpu/ops/imgproc.py (the reference's
-imgproc.cu kernels), with the same quirks: the bilateral and pyramid
+compute_points_normals, depth_pyramid_down, resize_depth_normals,
+resize_points_normals and the renders (_phong, render_image_depth,
+render_image_points, render_tangent_colors, merge_point_normal) from
+dynfu_tpu/ops/imgproc.py (the reference's imgproc.cu kernels). The renders
+cast to uint8 as the source's XLA does: clip, scale, truncate; a NaN tangent
+colour becomes 0. The preprocessing keeps the source's quirks: the bilateral and pyramid
 windows' exclusive upper bound (the last row and column never contribute),
 round-half-to-even of the weighted mean, integer division in the depth
 pyramid, unnormalised pooled normals, and dists stored in float16 — the
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from dynfu_tpu_torch.core.camera import Intr
-from dynfu_tpu_torch.volume.tsdf import sqrt_rn
+from dynfu_tpu_torch.volume.tsdf import norm3, sqrt_rn
 
 
 def _shift2d(img, dy: int, dx: int, fill):
@@ -184,3 +187,73 @@ def f32_scalar(v: float, device) -> torch.Tensor:
     """A float32 scalar TENSOR: CUDA divides by a Python-scalar divisor as a
     multiply by its reciprocal, which rounds differently from a division."""
     return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+# --- rendering (imgproc.cu:363-511) -----------------------------------------
+
+
+def _normalized(v: torch.Tensor) -> torch.Tensor:
+    return v / norm3(v[..., 0], v[..., 1], v[..., 2])[..., None]
+
+
+def _phong(P, N, light_pose, valid, height: int) -> torch.Tensor:
+    """Shared Phong shading body (imgproc.cu:384-402) -> (H, W, 3) uint8;
+    the background is a vertical gradient (imgproc.cu:374-380)."""
+    dev = P.device
+    Ka, Kd, Ks, spow = 0.3, 0.5, 0.2, 20.0
+    L = _normalized(torch.tensor(light_pose, dtype=torch.float32,
+                                 device=dev) - P)
+    V = _normalized(-P)
+    R = _normalized(2.0 * N * (N * L).sum(-1, keepdim=True) - L)
+    Ix = (Ka + Kd * torch.clamp_min((N * L).sum(-1), 0.0)
+          + Ks * torch.clamp_min((R * V).sum(-1), 0.0) ** spow)
+    color = Ix[..., None].expand(*Ix.shape, 3)
+    w = (torch.arange(height, dtype=torch.float32, device=dev)
+         / height)[:, None, None]
+    bgr1 = torch.tensor([4.0, 2.0, 2.0], dtype=torch.float32,
+                        device=dev) / 255.0
+    bgr2 = torch.tensor([236.0, 120.0, 120.0], dtype=torch.float32,
+                        device=dev) / 255.0
+    bg = bgr1 * (1 - w) + bgr2 * w
+    out = torch.where(valid[..., None], color, bg)
+    return (torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def render_image_depth(depth_mm: torch.Tensor, normals: torch.Tensor,
+                       intr: Intr, light_pose) -> torch.Tensor:
+    """Phong render from a depth map and normals (imgproc.cu:363-411)."""
+    H, W = depth_mm.shape
+    dev = depth_mm.device
+    z = depth_mm.to(torch.float32) * 0.001
+    x = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    y = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    P = torch.stack([z * (x - intr.cx) / f32_scalar(intr.fx, dev),
+                     z * (y - intr.cy) / f32_scalar(intr.fy, dev), z], -1)
+    return _phong(P, normals, light_pose, depth_mm != 0, H)
+
+
+def render_image_points(points: torch.Tensor, normals: torch.Tensor,
+                        light_pose) -> torch.Tensor:
+    """Phong render from a point map (imgproc.cu:414-462)."""
+    valid = ~torch.isnan(points[..., 0])
+    P = torch.where(valid[..., None], points, 0.0)
+    return _phong(P, normals, light_pose, valid, points.shape[0])
+
+
+def render_tangent_colors(normals: torch.Tensor) -> torch.Tensor:
+    """Tangent-colour normal visualisation, BGR uint8
+    (tangent_colors_kernel, imgproc.cu:489-511)."""
+    r = (5.0 - normals[..., 0] * 3.5) * 25.5
+    g = (5.0 - normals[..., 1] * 2.5) * 25.5
+    b = (5.0 - normals[..., 2] * 3.5) * 25.5
+    bgr = torch.nan_to_num(torch.stack([b, g, r], -1), nan=0.0)
+    # XLA's float -> uint8 conversion saturates
+    return torch.clamp(bgr, 0.0, 255.0).to(torch.uint8)
+
+
+def merge_point_normal(cloud: torch.Tensor,
+                       normals: torch.Tensor) -> torch.Tensor:
+    """Interleave (N, 3) points and normals into (N, 6)
+    (mergePointNormalKernel, imgproc.cu:515-548, minus PCL's float12
+    padding)."""
+    return torch.cat([cloud, normals], -1)

@@ -451,3 +451,193 @@ def run_umbrella_benchmark(volume_dims: int = 512, frames: int = 8,
         "live_vertices": int(engine.live.mask.sum()),
         "device": _device_name(engine.device),
     }
+
+
+# --- per-stage times --------------------------------------------------------
+
+
+def _stage_clock(device: torch.device, iters: int, stages: dict):
+    """clock(name, fn): runs fn once to warm up, then `iters` times, each
+    call followed by a device synchronize; stores the mean ms per call in
+    stages[name] and returns the last output."""
+    def wait():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def clock(name, fn):
+        out = fn()
+        wait()
+        total = 0.0
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            out = fn()
+            wait()
+            total += time.perf_counter() - t0
+        stages[name] = total / iters * 1e3
+        return out
+
+    return clock
+
+
+def run_stage_benchmark(volume_dims: int = 128, iters: int = 10,
+                        rows: int = 480, cols: int = 640,
+                        warmup_frames: int = 3, *, device="cuda") -> dict:
+    """Per-stage times of the parity frame, in milliseconds (port of the
+    source's run_stage_benchmark, same keys and stage names). A few engine
+    frames of the moving sphere build the state; each stage is then timed
+    alone on it, a synchronize after every call. The frame runs its stages
+    back to back, so read the stages as relative magnitudes, not as an
+    additive decomposition of fused_full_frame."""
+    from dynfu_tpu_torch.engine import dynfusion as dyn
+    from dynfu_tpu_torch.mesh.edges import isosurface_edge_vertices
+    from dynfu_tpu_torch.mesh.mc import marching_cubes
+    from dynfu_tpu_torch.ops import imgproc, knn
+    from dynfu_tpu_torch.solver import gn
+    from dynfu_tpu_torch.volume import tsdf as tv
+    from dynfu_tpu_torch.warp import field as wfield
+
+    engine = DynFusion(bench_params(volume_dims, rows, cols), device=device)
+    for i in range(warmup_frames):
+        engine(bench_frame(i, rows, cols))
+    dev = engine.device
+    depth = torch.as_tensor(bench_frame(warmup_frames, rows, cols)
+                            .astype(np.int32), device=dev)
+    dp, config, intr = engine.dynfu_params, engine.tsdf_config, engine.params.intr
+    vol, wf, c, pose = (engine.vol, engine.warpfield, engine.canonical,
+                        engine.poses[-1])
+
+    stages: dict = {}
+    clock = _stage_clock(dev, iters, stages)
+    dists = clock("preprocess_dists",
+                  lambda: imgproc.compute_dists(depth, intr))
+    vol2 = clock("clear_integrate", lambda: tv.integrate(
+        vol, dists, pose, intr, config, fresh=True))
+    if dp.corr_unique_edges:
+        # the frame consumes unique edge vertices; marching cubes runs on
+        # demand for mesh()
+        verts, n_verts, _ = clock(
+            "edge_vertices", lambda: isosurface_edge_vertices(
+                vol2, config,
+                max_edges=dp.max_edge_verts or dp.max_vertices // 2,
+                col_budget=dp.edge_col_budget or dp.mc_col_budget))
+        clock("marching_cubes_on_demand", lambda: marching_cubes(
+            vol2, config, max_voxels=dp.max_mc_voxels,
+            max_verts=dp.max_vertices, col_budget=dp.mc_col_budget))
+    else:
+        verts, n_verts, _ = clock("marching_cubes", lambda: marching_cubes(
+            vol2, config, max_voxels=dp.max_mc_voxels,
+            max_verts=dp.max_vertices, col_budget=dp.mc_col_budget))
+    live_m = torch.arange(verts.shape[0], device=dev) < n_verts
+    wv, _ = clock("warp_canonical", lambda: wfield.warp_points_normals(
+        wf, c.vertices, c.normals))
+    corr, exact = clock("correspondence_1nn", lambda: knn.nn1_gather_xwindow(
+        verts, wv, None, c.mask, live_m, rescue=dp.corr_rescue,
+        escalate=dp.corr_escalate, window_blocks=dp.corr_window_blocks))
+    clock("gn_solve", lambda: gn.solve(
+        wf, corr, verts, vert_mask=live_m & exact,
+        tukey_offset=dp.tukey_offset, psi_data=dp.psi_data,
+        lambda_reg=dp.lambda_reg, psi_reg=dp.psi_reg,
+        linear_iter=dp.solver.linear_iter, knn_k=dp.knn))
+    clock("node_insertion", lambda: wfield.update_warpfield(
+        wf, wv, c.mask, dp.epsilon, dp.node_voxel_leaf, dp.max_new_nodes,
+        vert_weights=engine.canonical_mult))
+    clock("fused_full_frame", lambda: dyn._nonrigid_frame(
+        vol, wf, c.vertices, c.normals, c.mask, depth, pose, dp=dp,
+        intr=intr, config=config, parity=True,
+        canonical_mult=engine.canonical_mult))
+    return {
+        "metric": f"nonrigid_stage_ms_{volume_dims}cube",
+        "value": stages["fused_full_frame"],
+        "unit": "ms/frame",
+        "vs_baseline": 1e3 / stages["fused_full_frame"] / TARGET_FPS,
+        "stages_ms": stages,
+        "n_mesh_verts": int(n_verts),
+        "device": _device_name(dev),
+    }
+
+
+def run_fusion_stage_benchmark(volume_dims: int = 512, iters: int = 5,
+                               rows: int = 480, cols: int = 640,
+                               warmup_frames: int = 4,
+                               rotations: bool = True, *,
+                               device="cuda") -> dict:
+    """Per-stage times of the fusion-mode frame (port of the source's
+    run_fusion_stage_benchmark, same keys and stage names), timed as
+    run_stage_benchmark times them. The warped integration updates its
+    volume in place, so its stages run on a copy of the engine's volume."""
+    from dynfu_tpu_torch.engine import dynfusion as dyn
+    from dynfu_tpu_torch.mesh.edges import isosurface_edge_vertices
+    from dynfu_tpu_torch.mesh.mc import marching_cubes
+    from dynfu_tpu_torch.ops import imgproc
+    from dynfu_tpu_torch.volume import fusion as vfusion
+    from dynfu_tpu_torch.volume import tsdf as tv
+    from dynfu_tpu_torch.warp import field as wfield
+
+    intr = Intr(525.0, 525.0, cols / 2 - 0.5, rows / 2 - 0.5)
+    params = DynFuParams(
+        kinfu=KinFuParams(rows=rows, cols=cols, intr=intr,
+                          volume_dims=(volume_dims,) * 3),
+        solver_rotations=rotations,
+        **DynFuParams.caps_for_volume(volume_dims, fusion=True))
+    engine = DynFusion(params, device=device, mode="fusion")
+    for i in range(warmup_frames):
+        engine(bench_frame(i, rows, cols))
+    dev = engine.device
+    depth = torch.as_tensor(bench_frame(warmup_frames, rows, cols)
+                            .astype(np.int32), device=dev)
+    dp, config = engine.dynfu_params, engine.tsdf_config
+    vol, wf, c, pose = (engine.vol, engine.warpfield, engine.canonical,
+                        engine.poses[-1])
+    work = vol._replace(tsdf=vol.tsdf.clone(), weight=vol.weight.clone())
+
+    stages: dict = {}
+    clock = _stage_clock(dev, iters, stages)
+    dists = clock("preprocess", lambda: imgproc.compute_dists(depth, intr))
+    live = clock("points_normals",
+                 lambda: imgproc.compute_points_normals(depth, intr))
+    blend = "dlb" if rotations else "dqb"
+
+    def warp(points, normals):
+        return (wfield.warp_points_normals_dlb(wf, points, normals)
+                if rotations else
+                wfield.warp_points_normals(wf, points, normals))
+
+    clock("warp_canonical", lambda: warp(c.vertices, c.normals))
+    vol2, _ = clock("integrate_warped_band", lambda: vfusion.integrate_warped(
+        work, wf, dists, pose, intr, config, normals=live[1],
+        min_cos=dp.fusion_min_cos, max_active=dp.fusion_max_active,
+        dilate=dp.fusion_dilate, knn_k=dp.knn, blend=blend))
+    if dp.corr_unique_edges:
+        mesh_v, n_verts, n_drop, _ = clock(
+            "edge_vertices_with_normals", lambda: isosurface_edge_vertices(
+                vol2, config,
+                max_edges=dp.max_edge_verts or dp.max_vertices // 2,
+                convention="corner",
+                col_budget=dp.edge_col_budget or dp.mc_col_budget,
+                with_normals=True))
+    else:
+        mesh_v, n_verts, n_drop = clock(
+            "marching_cubes_corner", lambda: marching_cubes(
+                vol2, config, max_voxels=dp.max_mc_voxels,
+                max_verts=dp.max_vertices, convention="corner",
+                col_budget=dp.mc_col_budget))
+        clock("extract_normals", lambda: tv.extract_normals(
+            vol2, mesh_v, config, frame="volume"))
+    clock("warp_new_mesh", lambda: warp(mesh_v, mesh_v))
+    clock("frame_solve_disabled", lambda: dyn._fusion_frame(
+        work, wf, c.vertices, c.normals, c.mask, depth, pose, dp=dp,
+        intr=intr, config=config, solve_enabled=False))
+    clock("fused_full_frame", lambda: dyn._fusion_frame(
+        work, wf, c.vertices, c.normals, c.mask, depth, pose, dp=dp,
+        intr=intr, config=config))
+    return {
+        "metric": f"fusion_stage_ms_{volume_dims}cube",
+        "value": stages["fused_full_frame"],
+        "unit": "ms/frame",
+        "vs_baseline": 1e3 / stages["fused_full_frame"] / TARGET_FPS,
+        "stages_ms": stages,
+        "n_mesh_verts": int(n_verts),
+        "n_extract_dropped": int(n_drop),
+        "n_band": int(engine.last_frame_stats.band.n_band),
+        "device": _device_name(dev),
+    }
