@@ -83,7 +83,26 @@
      caps_for_volume preset, so the row drops cells: no accuracy bound;
    - the rigid dataset app 512^3 (cli_rigid512): "run --rigid
      data/umbrella --volume-dims 512"; 16 pose rows in trajectory.txt,
-     rigid_mesh.ply, 19 stencil launches per ICP the engine ran.
+     rigid_mesh.ply, 19 stencil launches per ICP the engine ran;
+   - the sharded parity engine 512^3 (dist_parity512): run_benchmark(512,
+     repeats=3) on dist.driver.ShardedDynFusion over 2 ranks
+     (dist.runtime.spawn; this process is rank 0, whose launches are
+     counted; gloo when the ranks share the card, NCCL with a card each);
+     zero drops, the parity 512^3 accuracy bounds, the figures beside the
+     single-rank parity512 row's; every rank launched the path's kernels
+     (their counts gathered after the run); then, uncounted, the same
+     frames sharded against the single card frame by frame: the warped
+     cloud, its mask and the drop counts bitwise, the data Gram's entries
+     that differ (float64 rounding ties; 0 expected) counted; a world-1
+     NCCL run of the driver over 6 frames bitwise the single card's; with
+     2 or more cards the benchmark again over NCCL, one rank per card;
+     dist.engine_spmd.sharding_overhead(2) (ms per frame at 1 and 2 ranks);
+     `run data/umbrella --devices 2 --volume-dims 128 --frames 4
+     --export-viz --checkpoint-every 2`: its exports byte-equal to
+     --devices 1's, the checkpoints' arrays equal; 2 frames on 2 ranks
+     resumed on 2 ranks over frames 2-3: those exports byte-equal too.
+     The data Gram's largest call here is the float64 partial mode, held
+     bit for bit against its fixed-order model's partial.
 
 Prints each phase's seconds, the kernels' JSON line, the card's line, then
 as its last line the device JSON. Any failed check raises, and the script
@@ -116,6 +135,9 @@ if kernels.CSRC.parents[1] != Path(__file__).resolve().parent:
     sys.exit(1)
 
 from dynfu_tpu_torch.core import dualquat as dq  # noqa: E402
+from dynfu_tpu_torch.dist import runtime, shard_gram, spmd  # noqa: E402
+from dynfu_tpu_torch.dist.driver import ShardedDynFusion  # noqa: E402
+from dynfu_tpu_torch.dist.engine_spmd import sharding_overhead  # noqa: E402
 from dynfu_tpu_torch.core.camera import Intr  # noqa: E402
 from dynfu_tpu_torch.engine.dynfusion import DynFusion  # noqa: E402
 from dynfu_tpu_torch.engine.kinfu import KinFu  # noqa: E402
@@ -250,6 +272,8 @@ PATHS = {
     "cli512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                "warp_fused", "data_normal"),
     "cli_rigid512": ("fetch_stencil", "pack_triangles"),
+    "dist_parity512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
+                       "warp_fused", "data_normal"),
 }
 
 
@@ -620,8 +644,9 @@ def gram_work(idx, s2, D, per_pair, per_slot):
 
 def gram_case(args):
     """The library call is the dense route: A = (s2 W)^T W, one float32
-    matmul."""
-    idx, w, s2, _, D = args
+    matmul. With the partial mode (args[5]) the outputs are float64."""
+    idx, w, s2, _, D = args[:5]
+    out_bytes = 8 if len(args) > 5 and args[5] else 4
     N, K = idx.shape
     Wd = dense_strip(idx, w, D)
     sWT = (s2[:, None] * Wd).T.contiguous()
@@ -629,12 +654,13 @@ def gram_case(args):
     def cmp_gram(a, b):
         ea = max_abs(a[0], b[0]) / max(float(b[0].abs().max()), 1e-30)
         eb = max_abs(a[1], b[1]) / max(float(b[1].abs().max()), 1e-30)
-        # the kernel sums in float64, the plain version in float32:
-        # relative tolerance
+        # the kernel and the plain version both sum in float64, in other
+        # orders (the bits are held against the kernel's fixed-order model
+        # beside): relative tolerance
         require(max(ea, eb) <= 1e-5, f"data_normal relative error {ea}, {eb}")
         return max_abs(a[0], b[0])
     return (args, cmp_gram, "<= 1e-5 relative to max |A|, |b|",
-            (N * K * 8 + N * 16 + D * D * 4 + D * 12,
+            (N * K * 8 + N * 16 + (D * D + D * 3) * out_bytes,
              gram_work(idx, s2, D, 2, 7)),
             lambda: torch.matmul(sWT, Wd))
 
@@ -818,8 +844,8 @@ def work_stats(name, args) -> dict:
                   **launch)
         del vals, exact, got
     elif name in ("data_normal", "monomial_grams"):
-        idx, w, s2, D = args[0], args[1], args[2], args[-1]
         mono = name == "monomial_grams"
+        idx, w, s2, D = args[0], args[1], args[2], args[5 if mono else 4]
         work = gram_cuda.gather_work(idx, w, s2, D, mono)
         held = work["rows"] > 0
         st = dict(nodes_held=int(held.sum()),
@@ -849,15 +875,18 @@ def gram_model_check(name, args) -> bool:
     (gram_cuda.gram_fixed_order, on the CPU: index_add_ adds there in index
     order) at the kernel's warps per block."""
     got = KERNELS[name][0](*args)
+    partial = False
     if name == "data_normal":
-        idx, w, s2, delta, D = args
+        idx, w, s2, delta, D = args[:5]
+        partial = len(args) > 5 and args[5]
         y = None
     else:
         idx, w, s2, y, delta, D = args
         y = y.cpu()
     want = gram_cuda.gram_fixed_order(
         idx.cpu(), w.cpu(), s2.cpu(), delta.cpu(), D,
-        gram_cuda.gram_warps(idx.shape[0], D, y is not None), y=y)
+        gram_cuda.gram_warps(idx.shape[0], D, y is not None), y=y,
+        partial=partial)
     return all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
 
 
@@ -1284,10 +1313,15 @@ def rigid_phase():
     return got
 
 
+# main path -> its result, for the rows that compare with it
+RESULTS = {}
+
+
 def parity512_phase():
     res, got = run_path("parity512", lambda: run_benchmark(
         volume_dims=512, repeats=3, device=DEV))
     parity_checks(res, MAX_ERR512_MM, MAX_ERR512_3X_MM)
+    RESULTS["parity512"] = res
     return got
 
 
@@ -1428,13 +1462,13 @@ UMBRELLA_DIR = Path(__file__).resolve().parent / "data" / "umbrella"
 CLI_FRAMES, CLI_SPLIT = 16, 8
 
 
-def cli_run(out: Path, *args) -> None:
-    """`dynfu-torch run` over data/umbrella at 512^3, in this process (so
+def cli_run(out: Path, *args, dims: int = 512) -> None:
+    """`dynfu-torch run` over data/umbrella at dims^3, in this process (so
     that the launch counters can be read), into `out` (never the default
     <dataset>/out, which lies inside the checkout)."""
     from dynfu_tpu_torch.io import cli
 
-    argv = ["run", str(UMBRELLA_DIR), "--volume-dims", "512", *args,
+    argv = ["run", str(UMBRELLA_DIR), "--volume-dims", str(dims), *args,
             "--out", str(out)]
     require(cli.main(argv) == 0, f"dynfu-torch {' '.join(argv)} failed")
 
@@ -1571,6 +1605,218 @@ def cli_rigid512_phase():
     return got
 
 
+# --- the sharded parity engine (dist/) -------------------------------------
+
+DIST_RANKS = 2
+DIST_FRAMES = 3 + 3 * 12 + 3  # run_benchmark(512, repeats=3)'s frames
+NCCL1_FRAMES = 6
+
+
+def _dist_bench_rank(volume_dims: int, repeats: int) -> dict:
+    """On every rank: run_benchmark on the sharded engine, then every rank's
+    launch counts of that run (gathered after it)."""
+    mesh = spmd.make_mesh()
+    res = run_benchmark(volume_dims, repeats=repeats, mesh=mesh)
+    local = torch.tensor([launches(n) for n in KERNELS], device=mesh.device)
+    res["rank_launches"] = [dict(zip(KERNELS, c.tolist()))
+                            for c in spmd.all_gather(local, mesh)]
+    return res
+
+
+def _frames(engine, n: int):
+    """engine over the benchmark's first n frames: per frame the unique
+    warped cloud and its mask (on the host) and the drop counts; the final
+    node state."""
+    out = []
+    for i in range(n):
+        engine(bench_frame(i))
+        v, m = engine.warped_cloud(unique=True)
+        fs = engine.last_frame_stats
+        out.append((v.cpu(), m.cpu(), None if fs is None else
+                    (int(fs.mc_dropped), int(fs.corr_dropped))))
+    wf = (engine.engine if hasattr(engine, "engine") else engine).warpfield
+    return out, wf.dqs.cpu(), int(wf.count)
+
+
+def _dist_frames_rank(volume_dims: int, n: int):
+    """On every rank: ShardedDynFusion over the first n frames (rank 0's
+    return value is used)."""
+    mesh = spmd.make_mesh()
+    return _frames(ShardedDynFusion(bench_params(volume_dims), mesh=mesh),
+                   n) + (mesh.backend, mesh.world)
+
+
+class GramTies:
+    """Around the single card's frames, records each data Gram (A, b);
+    around rank 0's sharded frames, counts the entries of each reduced Gram
+    (float64 partials added in rank order, rounded once) that differ from
+    the single card's of the same frame."""
+
+    def __init__(self):
+        self.ref, self.diff, self.saved = [], [], []
+
+    def record(self):
+        ties = self
+
+        class Rec(Shim):  # the wrapper's counter stays the wrapper's
+            def __init__(self, wrapper):
+                self.wrapper = wrapper
+
+            def __call__(self, *a, **kw):
+                A, b = self.wrapper(*a, **kw)
+                ties.ref.append((A.clone(), b.clone()))
+                return A, b
+        self.saved.append((gram_cuda, "data_normal", gram_cuda.data_normal))
+        gram_cuda.data_normal = Rec(gram_cuda.data_normal)
+        return self
+
+    def count(self):
+        reduce = shard_gram.reduce_rank_order
+
+        def cnt(t, mesh):
+            flat = reduce(t, mesh)
+            A, b = self.ref[len(self.diff)]
+            D = A.shape[0]
+            self.diff.append(int((flat[:D * D] != A.reshape(-1)).sum())
+                             + int((flat[D * D:D * D + 3 * D]
+                                    != b.reshape(-1)).sum()))
+            return flat
+        self.saved.append((shard_gram, "reduce_rank_order", reduce))
+        shard_gram.reduce_rank_order = cnt
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+        self.saved = []
+
+
+def _same_frames(a, b) -> list:
+    """Per frame: the clouds, masks and drop counts bitwise equal."""
+    return [torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+            and x[2] == y[2] for x, y in zip(a, b)]
+
+
+def dist_parity512_phase():
+    """The sharded parity engine at 512^3 (see the module's docstring)."""
+    ties = GramTies()
+    with ties.record():
+        ref, ref_dqs, ref_count = _frames(
+            DynFusion(bench_params(512), device=DEV), DIST_FRAMES)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res, got = run_path("dist_parity512", lambda: runtime.spawn(
+        _dist_bench_rank, DIST_RANKS, 512, 3, inline=True))
+    print(f"dist_parity512: {time.perf_counter() - t0:.1f} s with the kernel "
+          "checks", flush=True)
+    parity_checks(res, MAX_ERR512_MM, MAX_ERR512_3X_MM)
+    single = RESULTS["parity512"]
+    keys = ("median_vertex_err_mm", "err_after_3x_motion_mm")
+    print(f"dist_parity512: {res['ranks']} ranks over {res['backend']} on "
+          f"{torch.cuda.device_count()} card(s); accuracy "
+          f"{[res[k] for k in keys]} against the single rank's "
+          f"{[single[k] for k in keys]} (same bits: "
+          f"{all(res[k] == single[k] for k in keys)}); frame_ms "
+          f"{res['frame_ms']} (single rank {single['frame_ms']}), latency_ms "
+          f"{res['latency_ms']} ({single['latency_ms']})", flush=True)
+    for r, counts in enumerate(res["rank_launches"]):
+        require(all(counts[n] > 0 for n in PATHS["dist_parity512"]),
+                f"dist_parity512: rank {r} launched {counts}")
+
+    with ties.count():
+        shard, dqs, count, backend, world = runtime.spawn(
+            _dist_frames_rank, DIST_RANKS, 512, DIST_FRAMES, inline=True)
+    same = _same_frames(shard, ref)
+    print(f"dist_parity512 frame by frame ({world} ranks, {backend}): "
+          f"warped cloud, mask and drops bitwise the single card's in "
+          f"{sum(same)} of {len(same)} frames; final DQs bitwise "
+          f"{torch.equal(dqs, ref_dqs)}, nodes {count} ({ref_count}); data "
+          f"Gram entries differing per frame {ties.diff} (total "
+          f"{sum(ties.diff)} over {len(ties.diff)} solves)", flush=True)
+    require(len(same) == DIST_FRAMES and all(
+        x[2] in (None, (0, 0)) for x in shard),
+        "dist_parity512: a frame dropped cells or correspondences")
+    require(len(ties.diff) == len(ties.ref),
+            f"dist_parity512: {len(ties.diff)} sharded solves, "
+            f"{len(ties.ref)} single-card")
+
+    nccl = runtime.spawn(_dist_frames_rank, 1, 512, NCCL1_FRAMES,
+                         backend="nccl", inline=True)
+    same1 = _same_frames(nccl[0], ref[:NCCL1_FRAMES])
+    print(f"dist_parity512 world-1 {nccl[3]}: {sum(same1)} of "
+          f"{NCCL1_FRAMES} frames bitwise the single card's", flush=True)
+    require(nccl[3] == "nccl" and all(same1),
+            "dist_parity512: the world-1 NCCL driver differs from the single "
+            "card")
+
+    if torch.cuda.device_count() >= DIST_RANKS:
+        nres = runtime.spawn(_dist_bench_rank, DIST_RANKS, 512, 3,
+                             backend="nccl", inline=True)
+        parity_checks(nres, MAX_ERR512_MM, MAX_ERR512_3X_MM)
+        print(f"dist_parity512 over nccl, one rank per card: "
+              f"{json.dumps(nres)}", flush=True)
+    else:
+        print("dist_parity512: 1 card, so no NCCL run across cards",
+              flush=True)
+    over = sharding_overhead(DIST_RANKS)
+    print(f"dist_parity512 sharding_overhead({DIST_RANKS}): "
+          f"{json.dumps(over)} ({torch.cuda.device_count()} card(s); ranks "
+          "sharing a card measure the collectives and the second process, "
+          "not scaling)", flush=True)
+    cli_devices_check()
+    return got
+
+
+def cli_devices_check():
+    """`dynfu-torch run --devices 2` (spawned ranks, this process rank 0)
+    on the umbrella's first 4 frames at 128^3 with renders and checkpoints
+    every 2 frames: every export byte-equal to --devices 1's and the last
+    checkpoints' arrays equal; then 2 frames on 2 ranks resumed on 2 ranks
+    over frames 2-3: those exports byte-equal to --devices 1's too."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        common = ["--export-viz", "--checkpoint-every", "2"]
+        t0 = time.perf_counter()
+        cli_run(tmp / "one", "--frames", "4", *common, dims=128)
+        t1 = time.perf_counter()
+        cli_run(tmp / "two", "--frames", "4", "--devices", "2", *common,
+                dims=128)
+        t2 = time.perf_counter()
+        cli_run(tmp / "half", "--frames", "2", "--devices", "2", *common,
+                dims=128)
+        cli_run(tmp / "resumed", "--frames", "4", "--devices", "2", *common,
+                "--resume", str(tmp / "half" / "checkpoint.npz"), dims=128)
+
+        def exports(d):
+            return sorted(f.name for f in (tmp / d).iterdir()
+                          if f.name != "checkpoint.npz")
+        names, resumed = exports("one"), exports("resumed")
+        require(exports("two") == names,
+                "cli --devices 2: other files than --devices 1")
+        require(resumed == [n for n in names if n.startswith("2_") or
+                            n.startswith("3_") or n[-5] in "23"],
+                f"cli --devices 2 resumed: wrote {resumed}")
+        for d, ns in (("two", names), ("resumed", resumed)):
+            for name in ns:
+                require((tmp / d / name).read_bytes()
+                        == (tmp / "one" / name).read_bytes(),
+                        f"cli --devices 2 ({d}): {name} differs")
+        with np.load(tmp / "one" / "checkpoint.npz") as a, \
+                np.load(tmp / "two" / "checkpoint.npz") as b:
+            require(sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files),
+                "cli --devices 2: the checkpoint differs")
+    print(f"cli --devices 2 (128^3, 4 umbrella frames, renders, checkpoints):"
+          f" {len(names)} exports byte-equal to --devices 1's, the last "
+          f"checkpoint's arrays equal; resumed from frame 2 on 2 ranks, "
+          f"{len(resumed)} exports byte-equal; {t1 - t0:.1f} s on one rank, "
+          f"{t2 - t1:.1f} s on two (with the spawn)", flush=True)
+
+
 def main() -> int:
     smi = nvidia_smi()
     print(f"card: {smi}", flush=True)
@@ -1591,7 +1837,8 @@ def main() -> int:
               ("umbrella512", umbrella_phase),
               ("fixed128", fixed_phase),
               ("cli512", cli512_phase),
-              ("cli_rigid512", cli_rigid512_phase)]
+              ("cli_rigid512", cli_rigid512_phase),
+              ("dist_parity512", dist_parity512_phase)]
     out = {}
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -34,6 +34,19 @@ DYNFU_API int dynfu_data_normal(const int* idx, const float* w,
                                 const float* s2, const float* delta, int N,
                                 int K, int D, unsigned* scratch, float* A,
                                 float* b, void* stream) {
-  return gg_launch<false>(idx, w, s2, nullptr, delta, N, K, D, scratch, A, b,
-                          nullptr, (cudaStream_t)stream);
+  return gg_launch<false, float>(idx, w, s2, nullptr, delta, N, K, D,
+                                 scratch, A, b, nullptr,
+                                 (cudaStream_t)stream);
+}
+
+// The same sums before the final rounding: A and b in float64 (the partial
+// Gram of a row range; dist/shard_gram.py adds the ranks' partials in rank
+// order and rounds once).
+DYNFU_API int dynfu_data_normal_f64(const int* idx, const float* w,
+                                    const float* s2, const float* delta,
+                                    int N, int K, int D, unsigned* scratch,
+                                    double* A, double* b, void* stream) {
+  return gg_launch<false, double>(idx, w, s2, nullptr, delta, N, K, D,
+                                  scratch, A, b, nullptr,
+                                  (cudaStream_t)stream);
 }

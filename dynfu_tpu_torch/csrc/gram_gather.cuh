@@ -415,14 +415,16 @@ static inline int gg_row_warps(int D, long long words) {
 // (no column numbering, no passes). It takes its chunks in order, one lane
 // per row: the lanes whose row holds i stage its terms (by rank, so in row
 // order), which are then added row by row, a row's K slots (its distinct
-// nodes, merged) one lane each.
-template <int K>
+// nodes, merged) one lane each. T = float rounds the float64 sums once; T =
+// double writes them before that rounding (the partial Gram of a row range,
+// which the sharded solve adds over ranks in rank order, then rounds).
+template <int K, typename T>
 __global__ void gg_row_kernel(const int* __restrict__ idx,
                               const float* __restrict__ w,
                               const float* __restrict__ s2,
                               const float* __restrict__ delta, int N, int D,
                               int words, const unsigned* __restrict__ bits,
-                              float* __restrict__ A, float* __restrict__ b) {
+                              T* __restrict__ A, T* __restrict__ b) {
   const unsigned full = 0xffffffffu;
   extern __shared__ double gg_sd[];
   const int i = blockIdx.x;
@@ -502,22 +504,25 @@ __global__ void gg_row_kernel(const int* __restrict__ idx,
   for (int j = threadIdx.x; j < D; j += blockDim.x) {
     double v = gg_sd[j];
     for (int g = 1; g < nw; ++g) v += gg_sd[g * WD + j];
-    A[(size_t)i * D + j] = (float)v;
+    A[(size_t)i * D + j] = (T)v;
   }
   if (threadIdx.x < 3) {
     const size_t off = (size_t)D + 32 * K + threadIdx.x;
     double v = gg_sd[off];
     for (int g = 1; g < nw; ++g) v += gg_sd[g * WD + off];
-    b[3 * (size_t)i + threadIdx.x] = (float)v;
+    b[3 * (size_t)i + threadIdx.x] = (T)v;
   }
 }
 
 // Both launches and the mask's memset on `s`. scratch: gg_scratch_words.
-template <bool MONO>
+// T = double (the data Gram only) writes the float64 sums unrounded.
+template <bool MONO, typename T = float>
 static inline int gg_launch(const int* idx, const float* w, const float* s2,
                             const float* y, const float* delta, int N, int K,
-                            int D, unsigned* scratch, float* G, float* rhs0,
-                            float* rhs1, cudaStream_t s) {
+                            int D, unsigned* scratch, T* G, T* rhs0,
+                            T* rhs1, cudaStream_t s) {
+  static_assert(!MONO || sizeof(T) == sizeof(float),
+                "the monomial Grams round to float32");
   const long long words = gg_words(N);
   const int nw = MONO ? gg_warps(D, words) : gg_row_warps(D, words);
   if (D < 1 || nw == 0 || words > (1 << 30)) return (int)cudaErrorInvalidValue;
@@ -538,9 +543,9 @@ static inline int gg_launch(const int* idx, const float* w, const float* s2,
       gg_gather_kernel<KK><<<D, 32 * nw, smem, s>>>(
           idx, w, s2, y, delta, N, D, (int)words, scratch, G, rhs0, rhs1);
     } else {
-      e = dynfu_smem_limit<gg_row_kernel<KK>>(smem);
+      e = dynfu_smem_limit<gg_row_kernel<KK, T>>(smem);
       if (e != cudaSuccess) return (int)e;
-      gg_row_kernel<KK><<<D, 32 * nw, smem, s>>>(
+      gg_row_kernel<KK, T><<<D, 32 * nw, smem, s>>>(
           idx, w, s2, delta, N, D, (int)words, scratch, G, rhs0);
     }
   });

@@ -162,9 +162,37 @@ def _in_box(v, aabb):
             & (v[:, 2] >= lo[2]) & (v[:, 2] < hi[2]))
 
 
+class ShardKernels(NamedTuple):
+    """The stages a sharded parity frame runs otherwise (source:
+    dynfu_tpu/engine/dynfusion.py:178-196; dist/engine_spmd.py builds
+    them). The rank holds planes x0.. of the volume and its block's live
+    vertices; the nodes and the canonical are replicated.
+
+    * x0: the block's first plane (integrate);
+    * halo_fn(vol) -> (slab, (h0, h1)): the block with its neighbours'
+      boundary planes (the edge extraction and marching cubes);
+    * prefix(counts) -> (before, total): the capacities over all blocks
+      (ops/compaction.py), and the drop counts summed over ranks;
+    * warp_fn(wf, canonical_v, canonical_n) -> (wv, wn) of the whole
+      canonical, each rank warping a row range;
+    * gram_fn: gn.solve's data_normal_fn, reduced over ranks in rank order.
+
+    The correspondence needs none: knn.nn1_gather_xwindow on the block's
+    live set against the replicated warped canonical, its graph payload
+    computed per rank, is the sharded correspondence (dist/shard_corr.py).
+    """
+
+    x0: int
+    halo_fn: object
+    prefix: object
+    warp_fn: object
+    gram_fn: object
+
+
 def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
                     pose, *, dp: DynFuParams, intr, config, parity: bool,
-                    canonical_mult=None):
+                    canonical_mult=None,
+                    kernels: Optional[ShardKernels] = None):
     """Frame k >= 1 of the parity and fixed pipelines
     (dyn_fusion.cpp:100-144). Parity keeps the reference's quirks (placeholder
     normals, the data graph fetched with the correspondence); fixed mode has
@@ -176,21 +204,32 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
     in scan order, before correspondence and solve; live vertices in the box
     beyond max_fg_verts count into corr_dropped.
 
+    With `kernels` (parity mode, dist/engine_spmd.py) the volume is the
+    rank's x-block, the live set its block's vertices (in rank order the
+    single card's), wv and wn the whole canonical's, and the counts global.
+
     Returns (vol, wf, wv, wn, (live_v, live_n, live_m), (mesh_verts,
     n_verts), stats)."""
     dists = imgproc.compute_dists(depth_mm, intr)
-    vol = tv.integrate(vol, dists, pose, intr, config, fresh=True)
+    x0 = 0 if kernels is None else kernels.x0
+    vol = tv.integrate(vol, dists, pose, intr, config, fresh=True, x0=x0)
+    slab, block = vol, {}
+    if kernels is not None:
+        slab, halo = kernels.halo_fn(vol)
+        block = dict(x0=x0, halo=halo, prefix=kernels.prefix)
     if dp.corr_unique_edges and parity:
         # the unique vertex set feeds correspondence and solve; the
         # triangle soup is left to DynFusion.mesh() (source :234-249)
         live_v, n_verts, mc_dropped = edges.isosurface_edge_vertices(
-            vol, config, max_edges=dp.max_edge_verts or dp.max_vertices // 2,
+            slab, config,
+            max_edges=dp.max_edge_verts or dp.max_vertices // 2,
             convention="center",
-            col_budget=dp.edge_col_budget or dp.mc_col_budget)
+            col_budget=dp.edge_col_budget or dp.mc_col_budget, **block)
     else:
         live_v, n_verts, mc_dropped = marching_cubes(
-            vol, config, max_voxels=dp.max_mc_voxels,
-            max_verts=dp.max_vertices, col_budget=dp.mc_col_budget)
+            slab, config, max_voxels=dp.max_mc_voxels,
+            max_verts=dp.max_vertices, col_budget=dp.mc_col_budget, **block)
+    del slab
     mesh = (live_v, n_verts)
     live_m = torch.arange(live_v.shape[0], device=live_v.device) < n_verts
     live_n = (live_v if parity
@@ -202,20 +241,23 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
         # correspondence window relies on it)
         inb = live_m & _in_box(live_v, dp.fg_aabb)
         n = live_v.shape[0]
-        fidx = compaction.rank_select(inb, dp.max_fg_verts, n)
+        fidx = compaction.rank_select(inb, dp.max_fg_verts, n,
+                                      prefix=block.get("prefix"))
         fok = fidx < n
         fsafe = torch.clamp_max(fidx, n - 1)
         live_v = torch.where(fok[:, None], live_v[fsafe], 0.0)
         live_n = (live_v if parity
                   else torch.where(fok[:, None], live_n[fsafe], 0.0))
         live_m = fok
-        fg_dropped = torch.clamp_min(
-            inb.sum(dtype=torch.int32) - dp.max_fg_verts, 0)
+        # the box's vertices beyond the capacity (this block's share)
+        fg_dropped = inb.sum(dtype=torch.int32) - fok.sum(dtype=torch.int32)
 
     # warp canonical -> live with the pre-solve field (dyn_fusion.cpp:203)
     rotations = dp.solver_rotations and not parity
     if rotations:
         wv, wn = wfield.warp_points_normals_dlb(wf, canonical_v, canonical_n)
+    elif kernels is not None:
+        wv, wn = kernels.warp_fn(wf, canonical_v, canonical_n)
     else:
         wv, wn = wfield.warp_points_normals(wf, canonical_v, canonical_n)
 
@@ -242,7 +284,8 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
             wf, corr_v, live_v, vert_mask=corr_m & live_m, graph_w=graph_w,
             nonlinear_iter=dp.solver.nonlinear_iter,
             num_iter=dp.solver.num_iter, early_out=dp.solver.early_out,
-            **solver)
+            data_normal_fn=(gn.data_normal if kernels is None
+                            else kernels.gram_fn), **solver)
 
     # node insertion from the warped canonical frame (dyn_fusion.cpp:142)
     wf = wfield.update_warpfield(wf, wv, canonical_m, dp.epsilon,
@@ -250,6 +293,10 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
                                  blend="dlb" if rotations else "dqb",
                                  vert_weights=canonical_mult)
     corr_dropped = torch.sum(live_m & ~corr_m, dtype=torch.int32) + fg_dropped
+    if kernels is not None:
+        mc_dropped, corr_dropped = (
+            torch.tensor(t, dtype=torch.int32, device=live_v.device)
+            for t in kernels.prefix([mc_dropped, corr_dropped])[1])
     stats = FrameStats(solve_stats, mc_dropped, corr_dropped)
     return vol, wf, wv, wn, (live_v, live_n, live_m), mesh, stats
 

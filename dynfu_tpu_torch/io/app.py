@@ -13,6 +13,14 @@ frame by frame under the fps sampler, and writes per-frame artifacts into
     continues from one.
 The engine runs on `device` ("cuda" by default; the CPU only when asked
 for).
+
+With devices > 1 (or ranks set by torchrun or DYNFU_*, dist/runtime.py) the
+parity engine runs sharded (dist/driver.ShardedDynFusion): without a
+launcher, `devices` local ranks start through dist.runtime.spawn, this
+process being rank 0. Each rank decodes the frames itself; the collective
+outputs (warped cloud, mesh, render, checkpoint) run on every rank and
+rank 0 alone writes them. `resume` loads the checkpoint on every rank and
+shards it again. The rigid pipeline is not sharded (nor in the source).
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch.distributed as dist
 
+from dynfu_tpu_torch.dist import runtime
 from dynfu_tpu_torch.engine.dynfusion import DynFusion
 from dynfu_tpu_torch.engine.params import DynFuParams
 from dynfu_tpu_torch.io import meshio
@@ -65,10 +75,21 @@ def run_dataset(
     max_fg_verts: int = 0,
     device="cuda",
 ) -> int:
-    if devices and devices > 1:
+    kw = dict(locals())
+    # a launcher's ranks (torchrun, DYNFU_*) are joined before `devices` is
+    # read: under one, devices > 1 names its world and starts no rank
+    launched = dist.is_initialized() or runtime.init_distributed(
+        device=device)
+    sharded = launched or (devices or 0) > 1
+    if sharded and rigid:
+        raise ValueError("--rigid runs on one device: the rigid pipeline is "
+                         "not sharded (nor in dynfu_tpu)")
+    if sharded and (mode or "parity") != "parity":
         raise NotImplementedError(
-            "devices > 1: the port runs on one card; the sharded engine is "
-            "ROADMAP §1 item 2 (multi-GPU)")
+            f"mode {mode!r} on {devices} devices: the sharded engine runs "
+            "parity mode (ROADMAP.md section 1, item 2)")
+    if sharded and not launched:
+        return runtime.spawn(_rank, devices, kw, device=device, inline=True)
     if rigid:
         return run_dataset_rigid(dataset, out_dir=out_dir,
                                  max_frames=max_frames,
@@ -90,12 +111,21 @@ def run_dataset(
         params = dataclasses.replace(params, fg_aabb=fg_aabb,
                                      max_fg_verts=max_fg_verts)
 
-    engine = DynFusion(params, device=device, mode=mode or "parity")
+    if sharded:
+        from dynfu_tpu_torch.dist.driver import ShardedDynFusion
+        from dynfu_tpu_torch.dist.spmd import make_mesh
+
+        engine = ShardedDynFusion(params, mesh=make_mesh(devices or None,
+                                                         device))
+    else:
+        engine = DynFusion(params, device=device, mode=mode or "parity")
+    primary = runtime.is_primary()
     start = 0
     if resume:
         load_checkpoint(engine, resume)
         start = engine.frame_counter
-        print(f"resumed from {resume} at frame {start}")
+        if primary:
+            print(f"resumed from {resume} at frame {start}")
     sampler = SampledScopeTime()
     # native threaded decode, from the first frame to run: the prefetch
     # ring fills in order, so the source's loader over every frame, asked
@@ -109,14 +139,18 @@ def run_dataset(
                 has_surface = engine(depth, image)
                 wv, wm = engine.warped_cloud()
                 sync(wv)
-            print(f"frame {i}: {'ok' if has_surface else 'bootstrap'}")
+            if primary:
+                print(f"frame {i}: {'ok' if has_surface else 'bootstrap'}")
 
             if i % save_every == 0:
+                # collective on a sharded engine: every rank calls them
+                verts, n = engine.mesh()
+                img = engine.render(0) if export_viz else None
+            if i % save_every == 0 and primary:
                 cloud = wv[wm].cpu().numpy()
                 meshio.save_pcd(
                     os.path.join(out_dir, f"pcl_canonical_to_live{i}.pcd"),
                     cloud)
-                verts, n = engine.mesh()
                 soup = verts[:int(n)].cpu().numpy()
                 meshio.save_vtk(os.path.join(out_dir, f"{i}_tsdf_mesh.vtk"),
                                 soup)
@@ -125,11 +159,16 @@ def run_dataset(
                 if export_viz:
                     meshio.save_image_png(
                         os.path.join(out_dir, f"render{i}.png"),
-                        engine.render(0).cpu().numpy())
+                        img.cpu().numpy())
             if checkpoint_every and (i + 1) % checkpoint_every == 0:
                 save_checkpoint(engine,
                                 os.path.join(out_dir, "checkpoint.npz"))
     return 0
+
+
+def _rank(kw: dict) -> int:
+    """run_dataset on a spawned rank (dist.runtime.spawn)."""
+    return run_dataset(**kw)
 
 
 def run_dataset_rigid(

@@ -1,8 +1,8 @@
 """Synthetic depth generators.
 
 `sphere_depth` and `generate_synthetic` are copied unchanged from
-dynfu_tpu/io/datasets.py (numpy only; importing them from dynfu_tpu would
-import jax). `dynfu-torch synth <dir>` writes the sequence and
+dynfu_tpu/io/datasets.py (numpy only; the port loads nothing of the JAX
+package, whose imports bring JAX in). `dynfu-torch synth <dir>` writes the sequence and
 `dynfu-torch run <dir>` consumes it.
 """
 

@@ -54,6 +54,7 @@ SIGNATURES = {
     "dynfu_gram_scratch": [_I, _I],
     "dynfu_gram_warps": [_I, _I, _I, _P],
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "dynfu_data_normal_f64": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "dynfu_fetch_stencil": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 

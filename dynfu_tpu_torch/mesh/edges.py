@@ -14,6 +14,14 @@ compaction is ops/compaction.py with the source's capacity rules, so the
 captured edges, their order and `n_dropped` equal the source's. (The
 source's `bitplanes=` input, packed planes emitted by its integrate, is a
 TPU device and is not ported.)
+
+On an x-block of a sharded volume (dist/), `vol` holds the block's planes
+x0 .. x0 + n - 1 plus `halo` = (h0, h1) neighbouring planes below and above
+(the -1 plane: the occupancy of cell x0 - 1 marks the block's first
+y- and z-edges; the +1 plane: the block's last x-edges and cells), and
+`prefix` applies the capacities over all blocks (ops/compaction.py): the
+block returns, in scan order, exactly the vertices of its planes that the
+whole volume's extraction keeps, and its own n_dropped.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
                              max_edges: int = 1 << 16,
                              convention: str = "center",
                              col_budget: int = 0,
-                             with_normals: bool = False):
+                             with_normals: bool = False, x0: int = 0,
+                             halo=(0, 0), prefix=None):
     """Extract the unique isosurface vertex set.
 
     Returns (verts (max_edges, 3) float32 volume-frame meters, the first
@@ -56,7 +65,13 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
     fraction, NaN outside [2, dims - 2)^3 (extract_normals' rule)."""
     if convention not in ("center", "corner"):
         raise ValueError(f"unknown convention {convention!r}")
-    X, Y, Z = config.dims
+    h0, h1 = halo
+    if with_normals and (h0 or h1):
+        raise NotImplementedError("edge normals on an x-block need a halo "
+                                  "of 2 (sharded fusion mode, ROADMAP.md)")
+    Xg, Y, Z = config.dims
+    X = vol.tsdf.shape[0]  # the planes held: the whole volume, or a block
+    nb = X - h0 - h1  # and its halo
     dev = vol.tsdf.device
     Fh, Wt = vol.tsdf, vol.weight
     ins, val = Fh < 0, Wt != 0  # (X, Y, Z)
@@ -93,28 +108,29 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
     allm[:, :-1, 1] = used_y
     allm[:, :, 2] = used_z
     del used_x, used_y, used_z
-    allm = allm.reshape(X * Y * 3, Z)
+    allm = allm[h0:h0 + nb].reshape(nb * Y * 3, Z)  # the block's own edges
 
-    fill = X * Y * 3 * Z
+    fill = nb * Y * 3 * Z
     K = min(col_budget, Z)
     if 0 < K <= 32:
         flat_idx, n_total, n_captured = compaction.extract_columns(
             allm, per_column=K,
-            max_cols=min(X * Y * 3, max(max_edges, 1 << 15)),
-            max_out=max_edges, row_stride=Z, fill=fill)
+            max_cols=min(Xg * Y * 3, max(max_edges, 1 << 15)),
+            max_out=max_edges, row_stride=Z, fill=fill, prefix=prefix)
     else:
         nw = (Z + 31) // 32
         flat_idx, n_total, n_captured = compaction.extract_bits(
             allm, max_out=max_edges, row_stride=Z, fill=fill,
-            max_words=min(X * Y * 3 * nw, max(max_edges, 1 << 15)))
+            max_words=min(Xg * Y * 3 * nw, max(max_edges, 1 << 15)),
+            prefix=prefix)
     del allm
 
     ok = flat_idx < fill
     safe = torch.where(ok, flat_idx, 0)
     c = torch.div(safe, Z, rounding_mode="floor")
     z = safe - c * Z
-    i = torch.div(c, Y * 3, rounding_mode="floor")
-    r = c - i * (Y * 3)
+    i = torch.div(c, Y * 3, rounding_mode="floor") + h0  # plane held
+    r = c - (i - h0) * (Y * 3)
     j = torch.div(r, 3, rounding_mode="floor")
     a = r - j * 3
 
@@ -127,7 +143,8 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
 
     vs = torch.as_tensor(np.asarray(config.voxel_size, np.float32), device=dev)
     shift = 0.5 if convention == "center" else 0.0
-    p0 = (torch.stack([i, j, z], -1).to(torch.float32) + shift) * vs
+    p0 = (torch.stack([i + (x0 - h0), j, z], -1).to(torch.float32)
+          + shift) * vs
     axis_dir = torch.stack([dxa, dya, dza], -1).to(torch.float32) * vs
     t = (0.0 - f0) / (f1 - f0 + 1e-15)  # vertex_interp, mc.cu:197-204
     verts = torch.where(ok[:, None], p0 + t[:, None] * axis_dir, 0.0)

@@ -23,6 +23,14 @@ each (x, y) column, at most max(max_voxels // 4, 2^15) active columns, at
 most `max_voxels` cells). `n_dropped` counts occupied cells not meshed. The
 triangle rows are packed into the stream by the CUDA kernel in
 mesh/mc_cuda.py.
+
+On an x-block of a sharded volume (dist/), `vol` holds the block's planes
+from x0 and `halo` = (h0, h1) neighbouring planes (the cells need the +1
+plane; the -1 plane is not read), and `prefix` applies the capacities over
+all blocks (ops/compaction.py): the block meshes exactly the cells of its
+own that the whole volume's marching cubes meshes, and its soup is the
+whole soup's rows from the blocks before it on, cut at `max_verts` as the
+whole soup is.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from dynfu_tpu_torch.volume.tsdf import TsdfConfig, TsdfVolume
 
 def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
                    max_voxels: int = 1 << 17, max_verts: int = 3 * 600_000,
-                   convention: str = "center", col_budget: int = 0):
+                   convention: str = "center", col_budget: int = 0,
+                   x0: int = 0, halo=(0, 0), prefix=None):
     """Extract the zero isosurface as a triangle soup.
 
     Returns (vertices (max_verts, 3) float32 volume-frame meters,
@@ -45,9 +54,10 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
     """
     if convention not in ("center", "corner"):
         raise ValueError(f"unknown convention {convention!r}")
-    X, Y, Z = config.dims
+    Xg, Y, Z = config.dims
     dev = vol.tsdf.device
-    F, Wt = vol.tsdf, vol.weight
+    F, Wt = vol.tsdf[halo[0]:], vol.weight[halo[0]:]
+    X = F.shape[0]  # the planes from x0 on: the block's and its +1 plane
     offs = tables.CORNER_OFFSETS
 
     # pass 1: occupancy over the (X-1, Y-1, Z-1) cell grid
@@ -65,9 +75,10 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
             all_in = all_in & inside
             all_out = all_out & ~inside
     occ = all_w & ~all_in & ~all_out
-    if n_cells < (1 << 18):
+    if (Xg - 1) * (Y - 1) * (Z - 1) < (1 << 18):
         n_occ = torch.sum(occ, dtype=torch.int32)
-        vox_idx = compaction.rank_select(occ.reshape(-1), max_voxels, n_cells)
+        vox_idx = compaction.rank_select(occ.reshape(-1), max_voxels, n_cells,
+                                         prefix=prefix)
     else:
         # the source's column-budget branch: ~2 trunc / voxel cells per
         # surface crossing, two crossings plus margin (mc.py:164-166)
@@ -77,8 +88,9 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
         ncols = (X - 1) * (Y - 1)
         vox_idx, n_occ, _ = compaction.extract_columns(
             occ.reshape(ncols, Z - 1), per_column=K,
-            max_cols=min(ncols, max(max_voxels // 4, 1 << 15)),
-            max_out=max_voxels, row_stride=Z - 1, fill=n_cells)
+            max_cols=min((Xg - 1) * (Y - 1), max(max_voxels // 4, 1 << 15)),
+            max_out=max_voxels, row_stride=Z - 1, fill=n_cells,
+            prefix=prefix)
     vox_valid = vox_idx < n_cells
     n_dropped = n_occ - torch.sum(vox_valid, dtype=torch.int32)
 
@@ -105,7 +117,7 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
 
     vs = torch.as_tensor(np.asarray(config.voxel_size, np.float32),
                          device=dev)
-    base = torch.stack([vx, vy, vz], dim=-1).to(torch.float32)  # (M, 3)
+    base = torch.stack([vx + x0, vy, vz], dim=-1).to(torch.float32)
     offs_t = torch.as_tensor(offs, dtype=torch.float32, device=dev)
     shift = 0.5 if convention == "center" else 0.0
     corner_pos = (base[:, None, :] + offs_t[None] + shift) * vs  # (M, 8, 3)
@@ -122,17 +134,21 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
     verts = torch.where((rows >= 0)[..., None], verts, 0.0)
 
     max_tris = max_verts // 3
+    total = v_offsets[-1] + occ_nverts[-1]
+    if prefix is not None:  # the triangles of the blocks before this one
+        max_tris = max(0, max_tris - prefix([total])[0][0] // 3)
     tris = verts.reshape(-1, 5, 9).contiguous()
-    out = mc_cuda.pack_triangles(tris, torch.div(v_offsets, 3,
-                                                 rounding_mode="floor"),
-                                 torch.div(occ_nverts, 3,
-                                           rounding_mode="floor"),
-                                 max_tris)
-    stream = out.reshape(max_tris * 3, 3)
+    if max_tris:
+        stream = mc_cuda.pack_triangles(
+            tris, torch.div(v_offsets, 3, rounding_mode="floor"),
+            torch.div(occ_nverts, 3, rounding_mode="floor"),
+            max_tris).reshape(max_tris * 3, 3)
+    else:  # the blocks before this one filled the soup
+        stream = torch.zeros((0, 3), dtype=torch.float32, device=dev)
     if max_tris * 3 < max_verts:
         stream = torch.nn.functional.pad(stream,
                                          (0, 0, 0, max_verts - max_tris * 3))
-    total = torch.clamp_max(v_offsets[-1] + occ_nverts[-1], max_tris * 3)
+    total = torch.clamp_max(total, max_tris * 3)
     return stream, total.to(torch.int32), n_dropped
 
 

@@ -10,7 +10,11 @@ t (D, 3); the energy is
 assembled as dense normal equations and solved by Jacobi-preconditioned CG
 with the reference schedule (24 outer / 16 nonlinear / 256 linear
 iterations, earlyOut). The data-term Gram is the CUDA kernel in
-solver/gram_cuda.py.
+solver/gram_cuda.py. The data cost c0 = sum s2 |delta|^2 is summed in
+float64 and rounded once. `data_normal_fn` replaces both, as the source's
+hook does: the sharded solve (dist/shard_gram.py) passes the Gram and c0
+of its rows, reduced over ranks in rank order; everything else in the solve
+is per row or per node.
 
 The CG loop (`pcg`, shared with the SE(3) solver) checks its tolerance on
 the host between trips of 8 steps, as the source's while_loop does; every
@@ -86,6 +90,19 @@ def _matvec(M, q):
     return torch.sum(M[:, :, None] * q[None, :, :], dim=1)
 
 
+def data_normal(data_idx, data_w, s2, delta, D: int):
+    """(A, b, c0): the data Gram (the kernel) and the data cost c0 = sum
+    s2 |delta|^2, summed in float64 and rounded once."""
+    A, b = gram_cuda.data_normal(data_idx, data_w, s2, delta, D)
+    return A, b, data_cost64(s2, delta).to(torch.float32)
+
+
+def data_cost64(s2, delta):
+    """sum s2 |delta|^2 in float64."""
+    d = delta.to(torch.float64)
+    return torch.sum(s2.to(torch.float64)[:, None] * d * d)
+
+
 def pcg(A, b, x0, linear_iter: int, cg_tol: float, matvec=_matvec):
     """Jacobi-preconditioned CG on A x = b, for b of shape (n,) or (n, c)
     (each column a right-hand side sharing one step size): (x,
@@ -132,7 +149,7 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
           cg_tol: float = 1e-12, knn_k: int = wfield.KNN,
           nonlinear_iter: int = 16, num_iter: int = 24,
           early_out: bool = True, min_update: float = 0.0,
-          max_update: float = 0.0):
+          max_update: float = 0.0, data_normal_fn=data_normal):
     """One warp solve: (updated WarpField, SolveStats).
 
     graph_w = (data_idx, data_w, warped) hands in prefetched data-graph rows
@@ -143,7 +160,9 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
     (the reference's only mode); without, each outer iteration re-weights
     from the current estimate. Fusion mode gates the result: min_update
     soft-thresholds each node's step (|t| <= min_update -> 0, larger steps
-    shrink by it), max_update rejects a step longer than it."""
+    shrink by it), max_update rejects a step longer than it.
+    data_normal_fn(data_idx, data_w, s2, delta, D) -> (A, b, c0) assembles
+    the data term (`data_normal`)."""
     dev = wf.pos.device
     canonical_v = torch.as_tensor(canonical_v, dtype=torch.float32,
                                   device=dev)
@@ -181,8 +200,8 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
     A_reg = _dense_reg_normal(reg_idx, edge_mask, D)
 
     def assemble_and_solve(s2_k, t_init):
-        A_data, b = gram_cuda.data_normal(data_idx, data_w,
-                                          s2_k.contiguous(), delta, D)
+        A_data, b, c0 = data_normal_fn(data_idx, data_w, s2_k.contiguous(),
+                                       delta, D)
         A = A_data + reg_w2 * A_reg
         # inner nonlinear loop: the energy is linear in t, so each
         # warm-started restart sees the same system
@@ -190,7 +209,6 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
         for _ in range(max(nonlinear_iter - 1, 0)):
             t, _ = pcg(A, b, t, linear_iter, cg_tol)
         t, iters = pcg(A, b, t, linear_iter, cg_tol)
-        c0 = torch.sum(s2_k[:, None] * delta * delta)
         costt = c0 - 2.0 * torch.sum(t * b) + torch.sum(t * _matvec(A, t))
         return t, iters, c0, costt
 

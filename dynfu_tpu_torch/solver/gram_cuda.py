@@ -9,8 +9,13 @@ bf16 split is a TPU device, not carried over.
 Both kernels sum every entry in one fixed order (csrc/gram_gather.cuh), in
 float64, and round once to float32, so they give the same bits on every
 launch; `gram_fixed_order` is a plain model of that order, for the tests
-and chip_smoke.py (on no main path). The plain versions sum in float32 in
-index_add_'s order, so kernel and plain version agree to float32 roundoff.
+and chip_smoke.py (on no main path). The data Gram's plain version sums in
+float64 too, in index_add_'s order; the monomial Grams' in float32. Kernel
+and plain version agree to float32 roundoff.
+
+`data_normal(..., partial=True)` returns the data Gram's float64 sums before
+the rounding: the partial Gram of a row range, which the sharded solve
+(dist/shard_gram.py) adds over ranks in rank order and rounds once.
 """
 
 from __future__ import annotations
@@ -22,22 +27,27 @@ import torch
 from dynfu_tpu_torch import kernels
 
 
-def data_normal_plain(data_idx, data_w, s2, delta, D: int):
+def data_normal_plain(data_idx, data_w, s2, delta, D: int,
+                      partial: bool = False):
+    """The terms and their sums in float64, rounded once to float32 unless
+    `partial`."""
     kernels.count_plain(data_normal_plain, data_idx)
-    N, K = data_idx.shape
+    f64 = torch.float64
     idx = data_idx.to(torch.int64)
     ok = (idx >= 0) & (idx < D)
-    ws = torch.where(ok, s2[:, None] * data_w, 0.0)  # (N, K)
+    w = data_w.to(f64)
+    ws = torch.where(ok, s2.to(f64)[:, None] * w, 0.0)  # (N, K)
     idx = torch.where(ok, idx, 0)
     pair_ok = ok[:, :, None] & ok[:, None, :]
     flat = (idx[:, :, None] * D + idx[:, None, :]).reshape(-1)
-    terms = torch.where(pair_ok, ws[:, :, None] * data_w[:, None, :], 0.0)
-    A = torch.zeros(D * D, dtype=torch.float32, device=data_w.device)
+    terms = torch.where(pair_ok, ws[:, :, None] * w[:, None, :], 0.0)
+    A = torch.zeros(D * D, dtype=f64, device=data_w.device)
     A.index_add_(0, flat, terms.reshape(-1))
-    b = torch.zeros((D, 3), dtype=torch.float32, device=data_w.device)
+    b = torch.zeros((D, 3), dtype=f64, device=data_w.device)
     b.index_add_(0, idx.reshape(-1),
-                 (ws[:, :, None] * delta[:, None, :]).reshape(-1, 3))
-    return A.reshape(D, D), b
+                 (ws[:, :, None] * delta.to(f64)[:, None, :]).reshape(-1, 3))
+    A = A.reshape(D, D)
+    return (A, b) if partial else (A.to(torch.float32), b.to(torch.float32))
 
 
 data_normal_plain.cuda_calls = 0
@@ -100,7 +110,7 @@ def _shares(idx, first, D: int, warps: int):
 
 
 def gram_fixed_order(data_idx, data_w, s2, delta, D: int, warps: int,
-                     y=None):
+                     y=None, partial: bool = False):
     """A Gram summed as csrc/gram_gather.cuh sums it: the data Gram (y is
     None) -> (A (D, D), b (D, 3)), or the monomial Grams -> (B (10, D, D),
     Bu (D, 3), Bw (D, 3)). Each row's live slots holding one node are merged
@@ -110,8 +120,8 @@ def gram_fixed_order(data_idx, data_w, s2, delta, D: int, warps: int,
     (s2 v_i) delta, resp. (v_i rs) (delta, y x delta). Node i's marked
     chunks of 32 rows (those holding it) are cut by rank into `warps`
     shares; each share sums from +0.0 in row order; the shares are summed
-    in order and rounded once to float32. On the CPU index_add_ adds in
-    index order."""
+    in order and rounded once to float32 (the data Gram with `partial`:
+    left in float64). On the CPU index_add_ adds in index order."""
     mono = y is not None
     N, K = data_idx.shape
     dev = data_w.device
@@ -147,7 +157,7 @@ def gram_fixed_order(data_idx, data_w, s2, delta, D: int, warps: int,
         tot = acc[0]
         for g in range(1, warps):
             tot = tot + acc[g]
-        return tot.to(torch.float32)
+        return tot if partial and not mono else tot.to(torch.float32)
 
     def summed(keys, vals, width):
         """vals (E, ...) into (warps * width, ...) at keys, in index
@@ -201,11 +211,13 @@ def _scratch(lib, N: int, D: int, dev):
 
 
 def data_normal(data_idx: torch.Tensor, data_w: torch.Tensor,
-                s2: torch.Tensor, delta: torch.Tensor, D: int):
+                s2: torch.Tensor, delta: torch.Tensor, D: int,
+                partial: bool = False):
     """data_idx (N, K) int32, data_w (N, K) f32 (invalid slots 0), s2 (N,)
-    f32, delta (N, 3) f32 -> (A (D, D), b (D, 3)) f32."""
+    f32, delta (N, 3) f32 -> (A (D, D), b (D, 3)) f32, or with `partial`
+    the float64 sums before their rounding."""
     if not kernels.on_cuda(data_idx, "data_normal"):
-        return data_normal_plain(data_idx, data_w, s2, delta, D)
+        return data_normal_plain(data_idx, data_w, s2, delta, D, partial)
     N, K = data_idx.shape
     dev = data_idx.device
     kernels.require(data_idx, "data_idx", torch.int32, (N, K), dev)
@@ -214,9 +226,11 @@ def data_normal(data_idx: torch.Tensor, data_w: torch.Tensor,
     kernels.require(delta, "delta", torch.float32, (N, 3), dev)
     lib = kernels.load()
     scratch = _scratch(lib, N, D, dev)
-    A = torch.empty((D, D), dtype=torch.float32, device=dev)
-    b = torch.empty((D, 3), dtype=torch.float32, device=dev)
-    kernels.check(lib.dynfu_data_normal(
+    dtype = torch.float64 if partial else torch.float32
+    A = torch.empty((D, D), dtype=dtype, device=dev)
+    b = torch.empty((D, 3), dtype=dtype, device=dev)
+    entry = lib.dynfu_data_normal_f64 if partial else lib.dynfu_data_normal
+    kernels.check(entry(
         data_idx.data_ptr(), data_w.data_ptr(), s2.data_ptr(),
         delta.data_ptr(), N, K, D, scratch.data_ptr(), A.data_ptr(),
         b.data_ptr(), kernels.stream(data_idx)), "data_normal")

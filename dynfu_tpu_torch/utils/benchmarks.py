@@ -15,7 +15,9 @@ camera position from the true one.
 run_benchmark: a 640x480 depth stream at fx = fy = 525 of a
 sphere (r = 0.5 m, 1.5 m away) translating 4 mm per frame along x, fused
 into a cubic TSDF over 3 m by the parity DynFusion loop. Capacities come
-from DynFuParams.caps_for_volume.
+from DynFuParams.caps_for_volume. With a `mesh` (dist/spmd.make_mesh),
+every rank runs it and the engine is the sharded one
+(dist/driver.ShardedDynFusion); the result names the ranks and backend.
 
 Timing: `repeats` consecutive windows of `frames` frames, each ended by a
 device synchronize; the best window gives `value` and `frame_ms`, the
@@ -150,11 +152,18 @@ def bench_frame(i: int, rows: int = 480, cols: int = 640) -> np.ndarray:
 
 def run_benchmark(volume_dims: int = 128, frames: int = 12, warmup: int = 3,
                   rows: int = 480, cols: int = 640, *, repeats: int = 6,
-                  device="cuda") -> dict:
+                  device="cuda", mesh=None) -> dict:
     if repeats < 3:
         raise ValueError("repeats must be >= 3 (the 3x-motion error is "
                          "read after the third window)")
-    engine = DynFusion(bench_params(volume_dims, rows, cols), device=device)
+    if mesh is None:
+        engine = DynFusion(bench_params(volume_dims, rows, cols),
+                           device=device)
+    else:  # every rank of the mesh runs this, the sharded engine
+        from dynfu_tpu_torch.dist.driver import ShardedDynFusion
+
+        engine = ShardedDynFusion(bench_params(volume_dims, rows, cols),
+                                  mesh=mesh)
     _frames = [bench_frame(i, rows, cols)
                for i in range(warmup + repeats * frames + 3)]
 
@@ -219,6 +228,8 @@ def run_benchmark(volume_dims: int = 128, frames: int = 12, warmup: int = 3,
         "window_frame_ms": [d * 1e3 for d in dts],
         "median_window_fps": 1.0 / sorted(dts)[len(dts) // 2],
         "device": _device_name(engine.device),
+        "ranks": 1 if mesh is None else mesh.world,
+        "backend": None if mesh is None else mesh.backend,
     }
 
 

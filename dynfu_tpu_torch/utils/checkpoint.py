@@ -15,6 +15,10 @@ source rebuilds it after frame 0 too) and foreground
 tracking's canonical (the compaction of the restored canonical to the box).
 Fusion mode's tracking pyramid (prev_live_pyr) is not in the format; a
 fusion engine with camera tracking restarts it on its next frame.
+
+A sharded engine (dist/driver.ShardedDynFusion) saves its gathered state
+from rank 0 (every rank takes part in the gather) and loads on every rank,
+then shards the restored state again; the file is the same format.
 """
 
 from __future__ import annotations
@@ -37,7 +41,16 @@ def _np(t) -> np.ndarray:
 
 
 def save_checkpoint(engine: "DynFusion", path: str) -> None:
-    """Serialize engine state to `path` (.npz, atomically)."""
+    """Serialize engine state to `path` (.npz, atomically); a sharded
+    engine's on every rank (collective), written by rank 0."""
+    from dynfu_tpu_torch.dist.driver import ShardedDynFusion
+    from dynfu_tpu_torch.dist.runtime import is_primary
+
+    if isinstance(engine, ShardedDynFusion):
+        with engine.gathered() as full:
+            if is_primary():
+                save_checkpoint(full, path)
+        return
     arrays = {
         "tsdf": _np(engine.vol.tsdf),
         "weight": _np(engine.vol.weight),
@@ -79,13 +92,19 @@ def save_checkpoint(engine: "DynFusion", path: str) -> None:
 
 
 def load_checkpoint(engine: "DynFusion", path: str) -> "DynFusion":
-    """Restore engine state from `path` in place, on the engine's device;
-    returns the engine."""
+    """Restore engine state from `path` in place, on the engine's device
+    (a sharded engine: on every rank, then sharded again); returns the
+    engine."""
+    from dynfu_tpu_torch.dist.driver import ShardedDynFusion
     from dynfu_tpu_torch.engine.dynfusion import Frame
     from dynfu_tpu_torch.rigid import icp
     from dynfu_tpu_torch.volume import tsdf as tv
     from dynfu_tpu_torch.warp.field import WarpField
 
+    if isinstance(engine, ShardedDynFusion):
+        load_checkpoint(engine.engine, path)
+        engine.reshard()
+        return engine
     dev = engine.device
     with np.load(path) as z:
         arr = {k: z[k] for k in z.files}

@@ -13,7 +13,7 @@ settings, in one process and in this order:
   warn_only, so that an operation with no deterministic version warns and
   runs): every PyTorch operation that has a deterministic version uses it;
 - "plain_det": that mode, with the data Gram computed by its plain version
-  (`gram_cuda.data_normal_plain`, whose float32 index_add_ is deterministic
+  (`gram_cuda.data_normal_plain`, whose float64 index_add_ is deterministic
   in it);
 - "ulp": once per seed 0 .. `--seeds` - 1 (not `--runs` times), the kernel's
   A and b with every nonzero entry moved one float32 ulp up or down at

@@ -93,7 +93,7 @@ def clear(vol: TsdfVolume) -> TsdfVolume:
 
 def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
               intr: Intr, config: TsdfConfig,
-              fresh: bool = False) -> TsdfVolume:
+              fresh: bool = False, x0: int = 0) -> TsdfVolume:
     """Projective TSDF update with running-average weights.
 
     Per voxel: vc = vol2cam * voxel_corner; project; point-sample dists
@@ -104,8 +104,12 @@ def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
     fresh=True is clear-then-integrate fused (the parity frame clears every
     frame, dyn_fusion.cpp:107-116): with zero previous weight the average is
     exactly the new sample, so the previous state is not read.
+
+    `vol` may hold a block of the volume: its planes are x0 .. x0 +
+    vol.tsdf.shape[0] - 1 (the sharded engine's x-blocks); every voxel's
+    update is the whole volume's, bit for bit.
     """
-    X, Y, Z = config.dims
+    X, (_, Y, Z) = vol.tsdf.shape[0], config.dims
     vsx, vsy, vsz = config.voxel_size
     H, W = dists.shape
     dev = vol.tsdf.device
@@ -116,7 +120,7 @@ def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
     R, t = se3.compose(se3.inverse(cam), (vol.pose_r, vol.pose_t))
 
     # the source's operation order, so the sample positions round the same
-    xs = torch.arange(X, dtype=f32, device=dev) * vsx
+    xs = torch.arange(x0, x0 + X, dtype=f32, device=dev) * vsx
     ys = torch.arange(Y, dtype=f32, device=dev) * vsy
     zf = torch.arange(Z, dtype=f32, device=dev)
     zcol = R[:, 2] * vsz

@@ -675,7 +675,7 @@ def _fixed_order_cases(kind, N, K, D, seed):
                                         ("mono", 4)])
 def test_gram_fixed_order_model(kind, warps):
     """The plain model of the kernels' fixed summation order: within 1e-5
-    of max |.| of the plain version (float32 index_add_), the same bits on a
+    of max |.| of the plain version (index_add_), the same bits on a
     second call, and equal to the order written out in plain Python."""
     D = 48
     args, y = _fixed_order_cases(kind, 400, 8, D, warps)
@@ -826,9 +826,9 @@ def dev():
 
 @pytest.mark.cuda
 def test_gram_kernel_equals_plain(dev):
-    """Within 1e-5 of max |A| and max |b| (the kernel sums in float64, the
-    plain version in float32), with out-of-range indices skipped and
-    repeated indices in a row."""
+    """Within 1e-5 of max |A| and max |b| (both sum in float64, in other
+    orders), with out-of-range indices skipped and repeated indices in a
+    row."""
     rng = np.random.default_rng(7)
     N, K, D = 5001, 8, 100
     idx = rng.integers(-1, D + 1, (N, K)).astype(np.int32)

@@ -543,8 +543,15 @@ def test_cli_without_card_exits_nonzero(tmp_path, monkeypatch, capsys):
 
 
 def test_run_dataset_devices_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        app.run_dataset(str(tmp_path), devices=2, device="cpu")
+    """devices > 1 runs the sharded parity engine (tests/test_torch_dist.py);
+    what it does not shard raises before any rank starts: fusion and fixed
+    mode, and the rigid pipeline."""
+    for mode in ("fusion", "fixed"):
+        with pytest.raises(NotImplementedError, match="parity"):
+            app.run_dataset(str(tmp_path), devices=2, mode=mode,
+                            device="cpu")
+    with pytest.raises(ValueError, match="rigid"):
+        app.run_dataset(str(tmp_path), devices=2, rigid=True, device="cpu")
 
 
 def test_no_port_module_imports_pil():
