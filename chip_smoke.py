@@ -102,7 +102,24 @@
      --devices 1's, the checkpoints' arrays equal; 2 frames on 2 ranks
      resumed on 2 ranks over frames 2-3: those exports byte-equal too.
      The data Gram's largest call here is the float64 partial mode, held
-     bit for bit against its fixed-order model's partial.
+     bit for bit against its fixed-order model's partial;
+   - the sharded fusion engine 512^3 (dist_fusion512):
+     run_fusion_benchmark(512, rotations=True) on ShardedDynFusion(mode=
+     "fusion") over 2 ranks (rank 0 counted, the others' counts gathered;
+     every rank must launch the path's kernels); the SE(3) fusion 512^3
+     bounds, the whole band captured, no dropped edge, the figures beside
+     the single-rank fusion row's; then, uncounted, the same 15 frames
+     sharded against the single card frame by frame (the canonical with
+     its normals, the warped cloud and the counters bitwise, the final
+     DQs; the monomial Grams' entries that differ between the rank-order
+     reduction and the single card counted: a frame that differs needs a
+     tie), and likewise a translations-only 128^3 run over 8 frames
+     (marching cubes, the pack, extract_normals on a block, the data
+     Gram's partial mode). The monomial Grams' largest call here is their
+     float64 partial mode, held bit for bit against its fixed-order
+     model's partial; the kernel phase holds that mode on its own inputs
+     too (3 launches bitwise, the model's bits, rounded once the float32
+     mode's bits: the "partial" entry of the monomial_grams row).
 
 Prints each phase's seconds, the kernels' JSON line, the card's line, then
 as its last line the device JSON. Any failed check raises, and the script
@@ -274,6 +291,8 @@ PATHS = {
     "cli_rigid512": ("fetch_stencil", "pack_triangles"),
     "dist_parity512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                        "warp_fused", "data_normal"),
+    "dist_fusion512": ("pack_triangles", "knn_gather", "warp_fused_dlb",
+                       "monomial_grams"),
 }
 
 
@@ -667,8 +686,10 @@ def gram_case(args):
 
 def mono_case(args):
     """The library call is the dense route: the ten monomial-scaled strips
-    against the strip, one batched float32 matmul."""
-    idx, w, s2, y, _, D = args
+    against the strip, one batched float32 matmul. With the partial mode
+    (args[6]) the outputs are float64."""
+    idx, w, s2, y, _, D = args[:6]
+    out_bytes = 8 if len(args) > 6 and args[6] else 4
     N, K = idx.shape
     Ws = dense_strip(idx, torch.sqrt(torch.clamp_min(s2, 0.0))[:, None] * w,
                      D)
@@ -678,12 +699,13 @@ def mono_case(args):
     def cmp_mono(a, b):
         errs = [max_abs(x, z) / max(float(z.abs().max()), 1e-30)
                 for x, z in zip(a, b)]
-        # the kernel sums in float64, the plain version in float32:
-        # relative tolerance
+        # the kernel and the plain version both sum in float64, in other
+        # orders (the bits are held against the kernel's fixed-order model
+        # beside): relative tolerance
         require(max(errs) <= 1e-5, f"monomial_grams relative errors {errs}")
         return max(max_abs(x, z) for x, z in zip(a, b))
     return (args, cmp_mono, "<= 1e-5 relative to max |B|, |Bu|, |Bw|",
-            (N * K * 8 + N * 28 + 10 * D * D * 4 + D * 24,
+            (N * K * 8 + N * 28 + (10 * D * D + D * 6) * out_bytes,
              gram_work(idx, s2, D, 22, 19)),
             lambda: torch.matmul(MsT, Ws))
 
@@ -788,6 +810,25 @@ def kernel_cases(verts, wf, fstate):
     return cases
 
 
+def mono_partial_row(case) -> dict:
+    """The monomial Grams' float64 partial mode (the sharded SE(3) solve's)
+    on the kernel phase's inputs: held against its plain version, its bits
+    repeated over three launches and equal to its fixed-order model's
+    partial (measure), and rounded once, the float32 mode's bits."""
+    args = case[0] + (True,)
+    row = measure("monomial_grams", *mono_case(args))
+    f64 = gram_cuda.monomial_grams(*args)
+    f32 = gram_cuda.monomial_grams(*case[0])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.float(), b) for a, b in zip(f64, f32))
+    print(f"kernel monomial_grams partial: rounded once, the float32 mode's "
+          f"bits: {same}", flush=True)
+    require(same and f64[0].dtype == torch.float64,
+            "monomial_grams: the partial mode rounded differs from the "
+            "float32 mode")
+    return dict(row, rounds_to_float32_mode=same)
+
+
 # --- the redesigned kernels' data-dependent work -------------------------
 
 
@@ -875,13 +916,13 @@ def gram_model_check(name, args) -> bool:
     (gram_cuda.gram_fixed_order, on the CPU: index_add_ adds there in index
     order) at the kernel's warps per block."""
     got = KERNELS[name][0](*args)
-    partial = False
     if name == "data_normal":
         idx, w, s2, delta, D = args[:5]
         partial = len(args) > 5 and args[5]
         y = None
     else:
-        idx, w, s2, y, delta, D = args
+        idx, w, s2, y, delta, D = args[:6]
+        partial = len(args) > 6 and args[6]
         y = y.cpu()
     want = gram_cuda.gram_fixed_order(
         idx.cpu(), w.cpu(), s2.cpu(), delta.cpu(), D,
@@ -942,8 +983,11 @@ def kernel_phase():
             "TF32 is on for float32 matmuls")
     verts, wf = parity_state()
     fstate = fusion_state()
-    rows = {name: measure(name, *case) for name, case in kernel_cases(
-        verts, wf, fstate).items()}
+    cases = kernel_cases(verts, wf, fstate)
+    rows = {name: measure(name, *case) for name, case in cases.items()}
+    rows["monomial_grams"]["partial"] = mono_partial_row(
+        cases["monomial_grams"])
+    del cases
     torch.cuda.empty_cache()
     # the stencil row is level 0; levels 1 and 2 ride along under "levels"
     levels = []
@@ -1297,6 +1341,7 @@ def fusion_phase():
         volume_dims=512, rotations=True, device=DEV))
     fusion_checks(res, (MAX_WARPED_MM, MAX_WARPED_HALF_MM, MAX_CANONICAL_MM),
                   JAX_FUSION)
+    RESULTS["fusion"] = res
     return got
 
 
@@ -1647,12 +1692,15 @@ def _dist_frames_rank(volume_dims: int, n: int):
 
 
 class GramTies:
-    """Around the single card's frames, records each data Gram (A, b);
-    around rank 0's sharded frames, counts the entries of each reduced Gram
-    (float64 partials added in rank order, rounded once) that differ from
-    the single card's of the same frame."""
+    """Around the single card's frames, records each Gram of the wrapper
+    `name` (data_normal: A, b; monomial_grams: B, Bu, Bw); around rank 0's
+    sharded frames, counts the entries of each reduced Gram (float64
+    partials added in rank order, rounded once) that differ from the
+    single card's of the same solve (the reductions of a cost alone are not
+    Grams and are skipped)."""
 
-    def __init__(self):
+    def __init__(self, name: str = "data_normal"):
+        self.name = name
         self.ref, self.diff, self.saved = [], [], []
 
     def record(self):
@@ -1663,11 +1711,12 @@ class GramTies:
                 self.wrapper = wrapper
 
             def __call__(self, *a, **kw):
-                A, b = self.wrapper(*a, **kw)
-                ties.ref.append((A.clone(), b.clone()))
-                return A, b
-        self.saved.append((gram_cuda, "data_normal", gram_cuda.data_normal))
-        gram_cuda.data_normal = Rec(gram_cuda.data_normal)
+                out = self.wrapper(*a, **kw)
+                ties.ref.append(torch.cat([t.reshape(-1) for t in out]))
+                return out
+        wrapper = getattr(gram_cuda, self.name)
+        self.saved.append((gram_cuda, self.name, wrapper))
+        setattr(gram_cuda, self.name, Rec(wrapper))
         return self
 
     def count(self):
@@ -1675,11 +1724,9 @@ class GramTies:
 
         def cnt(t, mesh):
             flat = reduce(t, mesh)
-            A, b = self.ref[len(self.diff)]
-            D = A.shape[0]
-            self.diff.append(int((flat[:D * D] != A.reshape(-1)).sum())
-                             + int((flat[D * D:D * D + 3 * D]
-                                    != b.reshape(-1)).sum()))
+            if flat.numel() > 1:
+                ref = self.ref[len(self.diff)]
+                self.diff.append(int((flat[:ref.numel()] != ref).sum()))
             return flat
         self.saved.append((shard_gram, "reduce_rank_order", reduce))
         shard_gram.reduce_rank_order = cnt
@@ -1771,6 +1818,138 @@ def dist_parity512_phase():
     return got
 
 
+# --- the sharded fusion engine (dist/, fusion mode) -------------------------
+
+FUSION_FRAMES = 3 + 12  # run_fusion_benchmark(512)'s warm-up and frames
+T128_FRAMES = 8  # the translations-only 128^3 frame-by-frame run
+
+
+def _dist_fusion_rank(volume_dims: int, rotations: bool) -> dict:
+    """On every rank: run_fusion_benchmark on the sharded engine, then every
+    rank's launch counts of that run (gathered after it)."""
+    mesh = spmd.make_mesh()
+    res = run_fusion_benchmark(volume_dims, rotations=rotations, mesh=mesh)
+    local = torch.tensor([launches(n) for n in KERNELS], device=mesh.device)
+    res["rank_launches"] = [dict(zip(KERNELS, c.tolist()))
+                            for c in spmd.all_gather(local, mesh)]
+    return res
+
+
+def _fusion_frames(engine, n: int):
+    """engine (fusion mode) over the moving sphere's first n frames: per
+    frame the canonical (vertices, normals, mask) and the warped cloud and
+    its mask on the host, and the counters (mc_dropped, corr_dropped,
+    n_band, n_captured, n_updated); the final node state."""
+    out = []
+    for i in range(n):
+        engine(bench_frame(i))
+        c = engine.canonical
+        wv, wm = engine.warped_cloud()
+        fs = engine.last_frame_stats
+        out.append(((c.vertices.cpu(), c.normals.cpu(), c.mask.cpu(),
+                     wv.cpu(), wm.cpu()), None if fs is None else
+                    (int(fs.mc_dropped), int(fs.corr_dropped),
+                     *(int(v) for v in fs.band))))
+    wf = (engine.engine if hasattr(engine, "engine") else engine).warpfield
+    return out, wf.dqs.cpu(), int(wf.count)
+
+
+def _dist_fusion_frames_rank(volume_dims: int, rotations: bool, n: int):
+    """On every rank: the fusion-mode ShardedDynFusion over the first n
+    frames (rank 0's return value is used)."""
+    mesh = spmd.make_mesh()
+    return _fusion_frames(ShardedDynFusion(
+        fusion_params(volume_dims, rotations=rotations), mode="fusion",
+        mesh=mesh), n) + (mesh.backend, mesh.world)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits (NaNs compare by their bits too)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _fusion_same(a, b) -> list:
+    """Per frame: the canonical, the warped cloud and the counters bitwise
+    equal."""
+    return [all(torch.equal(_bits(x), _bits(y)) for x, y in zip(p[0], q[0]))
+            and p[1] == q[1] for p, q in zip(a, b)]
+
+
+def fusion_by_frame(volume_dims: int, rotations: bool, n: int, tag: str):
+    """The sharded fusion engine over n frames against the single card's,
+    frame by frame (uncounted): the canonical, the warped cloud and the
+    counters bitwise, the final DQs; the Grams' entries that differ between
+    the sharded reduction and the single card's (float64 rounding ties)
+    counted. Any frame that differs needs a tie to explain it."""
+    ties = GramTies("monomial_grams" if rotations else "data_normal")
+    with ties.record():
+        ref, ref_dqs, ref_count = _fusion_frames(DynFusion(
+            fusion_params(volume_dims, rotations=rotations), device=DEV,
+            mode="fusion"), n)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with ties.count():
+        shard, dqs, count, backend, world = runtime.spawn(
+            _dist_fusion_frames_rank, DIST_RANKS, volume_dims, rotations, n,
+            inline=True)
+    same = _fusion_same(shard, ref)
+    print(f"{tag} frame by frame ({world} ranks, {backend}, "
+          f"{time.perf_counter() - t0:.1f} s): canonical, warped cloud and "
+          f"counters bitwise the single card's in {sum(same)} of "
+          f"{len(same)} frames (differing: "
+          f"{[i for i, x in enumerate(same) if not x]}); final DQs bitwise "
+          f"{torch.equal(dqs, ref_dqs)}, nodes {count} ({ref_count}); "
+          f"{ties.name} entries differing per solve {ties.diff} (total "
+          f"{sum(ties.diff)} over {len(ties.diff)} solves); counters per "
+          f"frame {[x[1] for x in shard]}", flush=True)
+    require(len(ties.diff) == len(ties.ref),
+            f"{tag}: {len(ties.diff)} sharded solves, {len(ties.ref)} "
+            "single-card")
+    require(all(same) and torch.equal(dqs, ref_dqs) or sum(ties.diff) > 0,
+            f"{tag}: frames differ from the single card's with no Gram tie")
+    require(all(x[1] is None or (x[1][0] == 0 and x[1][2] == x[1][3])
+                for x in shard),
+            f"{tag}: a frame dropped edges or band voxels")
+    return dict(frames_bitwise=sum(same), frames=len(same),
+                gram_entries_differing=ties.diff)
+
+
+def dist_fusion512_phase():
+    """The sharded fusion engine: run_fusion_benchmark(512, rotations=True)
+    on 2 ranks (rank 0 counted), its bounds and every rank's launches;
+    then, uncounted, the same frames against the single card frame by
+    frame, and the translations-only 128^3 run (marching cubes, the pack,
+    extract_normals on a block, the data Gram's partial mode) likewise."""
+    t0 = time.perf_counter()
+    res, got = run_path("dist_fusion512", lambda: runtime.spawn(
+        _dist_fusion_rank, DIST_RANKS, 512, True, inline=True))
+    print(f"dist_fusion512: {time.perf_counter() - t0:.1f} s with the kernel "
+          "checks", flush=True)
+    fusion_checks(res, (MAX_WARPED_MM, MAX_WARPED_HALF_MM, MAX_CANONICAL_MM),
+                  JAX_FUSION)
+    single = RESULTS["fusion"]
+    keys = ("warped_err_mm", "warped_err_half_motion_mm", "canonical_err_mm",
+            "corr_dropped", "n_band")
+    print(f"dist_fusion512: {res['ranks']} ranks over {res['backend']} on "
+          f"{torch.cuda.device_count()} card(s); "
+          f"{[res[k] for k in keys]} against the single rank's "
+          f"{[single[k] for k in keys]} (same: "
+          f"{all(res[k] == single[k] for k in keys)}); frame_ms "
+          f"{res['frame_ms']} (single rank {single['frame_ms']})",
+          flush=True)
+    for r, counts in enumerate(res["rank_launches"]):
+        require(all(counts[n] > 0 for n in PATHS["dist_fusion512"]),
+                f"dist_fusion512: rank {r} launched {counts}")
+    t1 = time.perf_counter()
+    by512 = fusion_by_frame(512, True, FUSION_FRAMES, "dist_fusion512")
+    by128 = fusion_by_frame(128, False, T128_FRAMES, "dist_fusion_t128")
+    print(f"dist_fusion512: frame-by-frame checks "
+          f"{time.perf_counter() - t1:.1f} s; 512^3 SE(3) "
+          f"{json.dumps(by512)}; 128^3 translations "
+          f"{json.dumps(by128)}", flush=True)
+    return got
+
+
 def cli_devices_check():
     """`dynfu-torch run --devices 2` (spawned ranks, this process rank 0)
     on the umbrella's first 4 frames at 128^3 with renders and checkpoints
@@ -1838,7 +2017,8 @@ def main() -> int:
               ("fixed128", fixed_phase),
               ("cli512", cli512_phase),
               ("cli_rigid512", cli_rigid512_phase),
-              ("dist_parity512", dist_parity512_phase)]
+              ("dist_parity512", dist_parity512_phase),
+              ("dist_fusion512", dist_fusion512_phase)]
     out = {}
     for name, fn in phases:
         t0 = time.perf_counter()

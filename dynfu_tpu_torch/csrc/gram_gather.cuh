@@ -6,6 +6,8 @@
 // holding i of u_c(n, i). Blocks run in no order on this card, so every
 // entry is summed in an order fixed by the data, in float64, and rounded
 // once to float32: the same bits on every launch, whatever the scheduling.
+// Each Gram also has a partial mode that writes the float64 sums unrounded
+// (the sharded solves add the ranks' partials in rank order, then round).
 //
 // Terms. Slot (n, r) is live where idx[n, r] is a node in [0, D) and its
 // weight is nonzero (data Gram: s2[n] != 0 and w[n, r] != 0, weight w; the
@@ -206,8 +208,11 @@ static inline int gg_warps(int D, long long words) {
 }
 
 // One block per node i: B[m][i][:], Bu[i] and Bw[i] in the order described
-// at the top (B is (10, D, D)).
-template <int K>
+// at the top (B is (10, D, D)). T = float rounds the float64 sums once; T =
+// double writes them before that rounding (the partial Grams of a row
+// range, which the sharded SE(3) solve adds over ranks in rank order, then
+// rounds).
+template <int K, typename T>
 __global__ void gg_gather_kernel(const int* __restrict__ idx,
                                  const float* __restrict__ w,
                                  const float* __restrict__ s2,
@@ -215,9 +220,9 @@ __global__ void gg_gather_kernel(const int* __restrict__ idx,
                                  const float* __restrict__ delta, int N,
                                  int D, int words,
                                  const unsigned* __restrict__ bits,
-                                 float* __restrict__ G,
-                                 float* __restrict__ rhs0,
-                                 float* __restrict__ rhs1) {
+                                 T* __restrict__ G,
+                                 T* __restrict__ rhs0,
+                                 T* __restrict__ rhs1) {
   constexpr int C = 10, R = 6, ST = GG_ST;
   const unsigned full = 0xffffffffu;
   extern __shared__ double gg_sd[];
@@ -368,14 +373,14 @@ __global__ void gg_gather_kernel(const int* __restrict__ idx,
       for (int j = threadIdx.x; j < D; j += blockDim.x)
         if (local[j] < 0)
 #pragma unroll
-          for (int m = 0; m < C; ++m) G[m * DD + (size_t)i * D + j] = 0.f;
+          for (int m = 0; m < C; ++m) G[m * DD + (size_t)i * D + j] = (T)0;
     const int nl = min(32, L - base);
     for (int t = threadIdx.x; t < nl * C; t += blockDim.x) {
       const int lc = t / C, m = t - lc * C;
       const size_t off = GG_TILE + lc * C + m;
       double v = gg_sd[off];
       for (int g = 1; g < nw; ++g) v += gg_sd[(size_t)g * GG_WARP_D + off];
-      G[m * DD + (size_t)i * D + node_of[base + lc]] = (float)v;
+      G[m * DD + (size_t)i * D + node_of[base + lc]] = (T)v;
     }
     if (first_pass && threadIdx.x < R) {
       const size_t off = GG_TILE + 32 * C + threadIdx.x;
@@ -383,9 +388,9 @@ __global__ void gg_gather_kernel(const int* __restrict__ idx,
       for (int g = 1; g < nw; ++g) v += gg_sd[(size_t)g * GG_WARP_D + off];
       const int cc = threadIdx.x;
       if (cc < 3)
-        rhs0[3 * (size_t)i + cc] = (float)v;
+        rhs0[3 * (size_t)i + cc] = (T)v;
       else
-        rhs1[3 * (size_t)i + cc - 3] = (float)v;
+        rhs1[3 * (size_t)i + cc - 3] = (T)v;
     }
     __syncthreads();  // the sums are read before the next pass writes them
     if (base + 32 >= L) break;
@@ -515,14 +520,12 @@ __global__ void gg_row_kernel(const int* __restrict__ idx,
 }
 
 // Both launches and the mask's memset on `s`. scratch: gg_scratch_words.
-// T = double (the data Gram only) writes the float64 sums unrounded.
+// T = double writes the float64 sums unrounded.
 template <bool MONO, typename T = float>
 static inline int gg_launch(const int* idx, const float* w, const float* s2,
                             const float* y, const float* delta, int N, int K,
                             int D, unsigned* scratch, T* G, T* rhs0,
                             T* rhs1, cudaStream_t s) {
-  static_assert(!MONO || sizeof(T) == sizeof(float),
-                "the monomial Grams round to float32");
   const long long words = gg_words(N);
   const int nw = MONO ? gg_warps(D, words) : gg_row_warps(D, words);
   if (D < 1 || nw == 0 || words > (1 << 30)) return (int)cudaErrorInvalidValue;
@@ -538,9 +541,9 @@ static inline int gg_launch(const int* idx, const float* w, const float* s2,
       gg_mark_kernel<KK, MONO><<<dynfu_blocks(32 * chunks, 256), 256, 0, s>>>(
           idx, w, s2, N, D, (int)words, scratch);
     if constexpr (MONO) {
-      e = dynfu_smem_limit<gg_gather_kernel<KK>>(smem);
+      e = dynfu_smem_limit<gg_gather_kernel<KK, T>>(smem);
       if (e != cudaSuccess) return (int)e;
-      gg_gather_kernel<KK><<<D, 32 * nw, smem, s>>>(
+      gg_gather_kernel<KK, T><<<D, 32 * nw, smem, s>>>(
           idx, w, s2, y, delta, N, D, (int)words, scratch, G, rhs0, rhs1);
     } else {
       e = dynfu_smem_limit<gg_row_kernel<KK, T>>(smem);

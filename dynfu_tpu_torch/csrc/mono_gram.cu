@@ -29,3 +29,15 @@ DYNFU_API int dynfu_monomial_grams(const int* idx, const float* w,
   return gg_launch<true>(idx, w, s2, y, delta, N, K, D, scratch, B, Bu, Bw,
                          (cudaStream_t)stream);
 }
+
+// The same sums before the final rounding: B, Bu and Bw in float64 (the
+// partial Grams of a row range; dist/shard_gram.py adds the ranks' partials
+// in rank order and rounds once).
+DYNFU_API int dynfu_monomial_grams_f64(const int* idx, const float* w,
+                                       const float* s2, const float* y,
+                                       const float* delta, int N, int K,
+                                       int D, unsigned* scratch, double* B,
+                                       double* Bu, double* Bw, void* stream) {
+  return gg_launch<true, double>(idx, w, s2, y, delta, N, K, D, scratch, B,
+                                 Bu, Bw, (cudaStream_t)stream);
+}

@@ -1,4 +1,5 @@
-"""The multi-GPU layer: the sharded parity engine over torch.distributed.
+"""The multi-GPU layer: the sharded parity and fusion engines over
+torch.distributed.
 
 Port of dynfu_tpu/dist/. JAX runs one process over an N-device mesh and
 lets GSPMD place the collectives; here each rank is a process on its own
@@ -10,7 +11,12 @@ device and the collectives are written out (dist/spmd.py):
 * the live vertex set is each block's (in rank order the single card's
   scan order); the canonical's warp is split into row ranges;
 * the node state is replicated; the GN data Gram is each rank's float64
-  partial, added over ranks in rank order and rounded once.
+  partial, added over ranks in rank order and rounded once;
+* fusion mode (sharded_fusion_frame) re-extracts its canonical every frame
+  from the blocks (a halo of 2 planes) and gathers it in rank order, so it
+  is replicated; its vertex stages run on row ranges, and the SE(3)
+  solve's monomial Grams and data costs are float64 partials reduced in
+  rank order too.
 
 The answer is the single card's: selections, counts and the volume exactly,
 the Gram but for float64 rounding ties.
@@ -29,6 +35,8 @@ _EXPORTS = {
                            "place_engine_state"),
     "sharded_engine_frame": ("dynfu_tpu_torch.dist.engine_spmd",
                              "sharded_engine_frame"),
+    "sharded_fusion_frame": ("dynfu_tpu_torch.dist.engine_spmd",
+                             "sharded_fusion_frame"),
     "sharding_overhead": ("dynfu_tpu_torch.dist.engine_spmd",
                           "sharding_overhead"),
     "make_mesh": ("dynfu_tpu_torch.dist.spmd", "make_mesh"),

@@ -1,8 +1,8 @@
-"""The parity engine frame over the ranks of a mesh.
+"""The parity and fusion engine frames over the ranks of a mesh.
 
 Port of dynfu_tpu/dist/engine_spmd.py (sharded_engine_frame,
-place_engine_state, sharding_overhead) for parity mode. The layout is the
-source's, each collective written out (dist/spmd.py):
+sharded_fusion_frame, place_engine_state, sharding_overhead). The layout is
+the source's, each collective written out (dist/spmd.py):
 
 * the TSDF volume is block-partitioned along x; integrate is per voxel on
   the block; the edge extraction (or, without unique edges, marching
@@ -19,8 +19,19 @@ source's, each collective written out (dist/spmd.py):
   replicated, on identical inputs, so the node state stays identical.
 
 There is one path and it runs the port's kernels on every rank (the source
-also has a GSPMD trace without its kernels). Fusion mode's sharded frame
-and the fixed mode raise (ROADMAP.md).
+also has a GSPMD trace without its kernels). Fixed mode raises, as in the
+source.
+
+Fusion mode (`sharded_fusion_frame`, the persistent canonical volume) keeps
+the volume blocked the same way, with a halo of 2 planes for the band's
+dilation and the gradient normals; its canonical is re-extracted every
+frame, so it is replicated: each block's vertices and normals, gathered in
+rank order (the scan order), are the single card's buffer, padding
+included. The pre-solve warp, the projective association, the solve's data
+rows and the insertion warp run on each rank's row range of it; the
+solve's sums (the monomial Grams and data costs of the SE(3) solve, or the
+data Gram) are float64 partials reduced in rank order, and node insertion
+runs replicated on the gathered insertion warp.
 """
 
 from __future__ import annotations
@@ -48,6 +59,49 @@ def shard_kernels(mesh: spmd.Mesh, config: tv.TsdfConfig) -> dyn.ShardKernels:
         gram_fn=shard_gram.data_normal_fn(mesh))
 
 
+def fusion_shard_kernels(mesh: spmd.Mesh,
+                         config: tv.TsdfConfig) -> dyn.FusionShardKernels:
+    """The rank's sharded stages of the fusion frame."""
+    X = config.dims[0]
+    return dyn.FusionShardKernels(
+        x0=mesh.block(X)[0],
+        halo_fn=lambda vol, width: spmd.halo_slab(vol, mesh, X, width),
+        prefix=lambda counts: spmd.prefix(counts, mesh),
+        rows=mesh.block,
+        gather_rows=lambda t, n=None: spmd.all_gather_rows(t, mesh, n),
+        data_normal_fn=shard_gram.data_normal_fn(mesh),
+        data_term=shard_gram.monomial_grams_fn(mesh))
+
+
+def sharded_fusion_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
+                         config: tv.TsdfConfig, solve_enabled: bool = True):
+    """The engine's persistent-canonical `_fusion_frame` over `mesh`.
+
+    Returns step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
+    pose) -> (vol, wf, mesh_verts, new_n, new_m, n_verts, wv2, wn2, stats),
+    the source's nine outputs: the volume the rank's x-block, the rest
+    replicated (the re-extracted canonical and its insertion warp in the
+    single card's buffer, the node state, the stats with the counts summed
+    over ranks). `solve_enabled=False` is the warm-up step (integrate
+    without a solve, DynFuParams.fusion_warmup_frames). The inputs come from
+    `place_engine_state`; every rank calls step together."""
+    if dp.fusion_camera_tracking:
+        raise NotImplementedError(
+            "fusion_camera_tracking on the sharded engine: the source's "
+            "sharded driver drops the camera pose; the port raises "
+            "(ROADMAP.md section 1, item 2)")
+    kern = fusion_shard_kernels(mesh, config)
+
+    def step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
+             pose):
+        return dyn._fusion_frame(
+            vol, wf, canonical_v, canonical_n, canonical_m, depth_mm, pose,
+            dp=dp, intr=intr, config=config, solve_enabled=solve_enabled,
+            kernels=kern)
+
+    return step
+
+
 def sharded_engine_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
                          config: tv.TsdfConfig, mode: str = "parity"):
     """The engine's parity `_nonrigid_frame` over `mesh`.
@@ -60,14 +114,11 @@ def sharded_engine_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
     itself with unique edges) its block's, the node state and the stats
     (drop counts summed over ranks) replicated. The inputs come from
     `place_engine_state`; every rank calls step together."""
-    if mode == "fusion":
-        raise NotImplementedError(
-            "the sharded fusion frame is the next multi-GPU slice "
-            "(ROADMAP.md section 1, item 2)")
     if mode != "parity":
         raise NotImplementedError(
-            "the sharded engine runs parity mode; fixed mode's rigid-ICP "
-            "pyramid chaining is single-device (as in dynfu_tpu)")
+            f"mode {mode!r}: this is the parity frame (fusion mode's is "
+            "sharded_fusion_frame); fixed mode's rigid-ICP pyramid chaining "
+            "is single-device (as in dynfu_tpu)")
     kern = shard_kernels(mesh, config)
 
     def step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm, pose,

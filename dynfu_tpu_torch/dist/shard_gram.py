@@ -1,4 +1,4 @@
-"""The GN data Gram over row-sharded data rows, reduced in rank order.
+"""The GN data Grams over row-sharded data rows, reduced in rank order.
 
 Port of dynfu_tpu/dist/shard_gram.py:19-60, whose shard_map runs the Gram
 kernel per device and reduces (A, b) with one psum. That psum's order is
@@ -11,6 +11,12 @@ float64; one all_gather brings every rank's partials, which each rank adds
 in rank order and rounds once to float32. Every rank gets the same bits,
 and they are the single card's but where a float64 sum in another order
 rounds to another float32 (a tie).
+
+The SE(3) solve's sums (fusion mode) are reduced the same way: each rank's
+monomial Grams in their float64 partial mode
+(gram_cuda.monomial_grams(partial=True)) with its rows' data cost, one
+reduction per relinearisation (10 D^2 + 6 D + 1 float64 values: 33 MB a
+rank at D = 640), and the cost of a trial step, one more.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from dynfu_tpu_torch.dist import spmd
 from dynfu_tpu_torch.solver import gn, gram_cuda
+from dynfu_tpu_torch.solver import se3 as se3_solver
 
 
 def reduce_rank_order(t: torch.Tensor, mesh: spmd.Mesh) -> torch.Tensor:
@@ -43,6 +50,38 @@ def data_normal_fn(mesh: spmd.Mesh):
                 flat[D * D:D * D + 3 * D].reshape(D, 3), flat[-1])
 
     return fn
+
+
+def monomial_grams_fn(mesh: spmd.Mesh) -> se3_solver.DataTerm:
+    """se3.solve's data term over this rank's rows: (B, Bu, Bw, cost) and
+    the cost of all ranks' rows."""
+    def grams(data_idx, data_w, s2, y_c, delta, D: int):
+        B, Bu, Bw = gram_cuda.monomial_grams(data_idx, data_w, s2, y_c,
+                                             delta, D, partial=True)
+        flat = reduce_rank_order(torch.cat(
+            [B.reshape(-1), Bu.reshape(-1), Bw.reshape(-1),
+             gn.data_cost64(s2, delta).reshape(1)]), mesh)
+        n = 10 * D * D
+        return (flat[:n].reshape(10, D, D),
+                flat[n:n + 3 * D].reshape(D, 3),
+                flat[n + 3 * D:n + 6 * D].reshape(D, 3), flat[-1])
+
+    def cost(s2, delta):
+        return reduce_rank_order(gn.data_cost64(s2, delta).reshape(1),
+                                 mesh)[0]
+
+    return se3_solver.DataTerm(grams=grams, cost=cost)
+
+
+def monomial_grams_sharded(mesh: spmd.Mesh, data_idx, data_w, s2, y, delta,
+                           D: int):
+    """(B, Bu, Bw) of every row, on every rank; rank r assembles rows
+    mesh.block(N)."""
+    lo, hi = mesh.block(data_idx.shape[0])
+    B, Bu, Bw, _ = monomial_grams_fn(mesh).grams(
+        *(t[lo:hi].contiguous() for t in (data_idx, data_w, s2, y, delta)),
+        D)
+    return B, Bu, Bw
 
 
 def data_normal_sharded(mesh: spmd.Mesh, data_idx, data_w, s2, delta,

@@ -7,7 +7,9 @@ written out, in rank order:
 
 * the volume is block-partitioned along x: rank r holds planes
   block(X) = [r X / world, (r + 1) X / world) (`shard_volume`);
-  `halo_slab` adds the neighbours' boundary planes (one all_gather),
+  `halo_slab` adds `width` of the neighbours' boundary planes on each side
+  (one all_gather; 1 for marching cubes and the parity edges, 2 for the
+  band dilation and the gradient normals of fusion mode),
   `gather_volume` rebuilds the whole volume (rank 0 uses it for meshes,
   renders and checkpoints);
 * vertex buffers split into `world` contiguous row ranges (`block` of
@@ -19,8 +21,6 @@ written out, in rank order:
 A mesh without a process group (one rank) needs no collective: each is the
 identity there. A process group of one rank (world 1 over NCCL, say) runs
 them.
-The sharded fusion step (the source's sharded_fusion_step) waits for
-sharded fusion mode (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,10 +51,10 @@ class Mesh:
         r = self.rank if rank is None else rank
         return r * n // self.world, (r + 1) * n // self.world
 
-    def halo(self, X: int):
+    def halo(self, X: int, width: int = 1):
         """Planes held below and above this rank's block in `halo_slab`."""
         lo, hi = self.block(X)
-        return int(lo > 0), int(hi < X)
+        return width * int(lo > 0), width * int(hi < X)
 
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
@@ -135,17 +135,23 @@ def _unplanes(b: torch.Tensor):
     return tsdf, b[..., 2].contiguous()
 
 
-def halo_slab(vol: tv.TsdfVolume, mesh: Mesh, X: int):
-    """The block with the lower neighbour's last plane below it and the
-    upper neighbour's first plane above it, where they exist: (slab volume,
-    (h0, h1)). One all_gather of every block's two boundary planes."""
-    h0, h1 = mesh.halo(X)
+def halo_slab(vol: tv.TsdfVolume, mesh: Mesh, X: int, width: int = 1):
+    """The block with the lower neighbour's last `width` planes below it and
+    the upper neighbour's first `width` planes above it, where they exist:
+    (slab volume, (h0, h1)). One all_gather of every block's boundary
+    planes; every block must hold at least `width` planes."""
+    h0, h1 = mesh.halo(X, width)
     if mesh.backend is None:
         return vol, (h0, h1)
-    ends = [0, -1]
+    if min(hi - lo for lo, hi in (mesh.block(X, r)
+                                  for r in range(mesh.world))) < width:
+        raise ValueError(f"a halo of {width} planes needs blocks of at "
+                         f"least {width} planes: {X} planes on "
+                         f"{mesh.world} ranks")
+    ends = list(range(width)) + list(range(-width, 0))
     every = all_gather(_planes(vol.tsdf[ends], vol.weight[ends]), mesh)
-    below = [_unplanes(every[mesh.rank - 1][1:])] if h0 else []
-    above = [_unplanes(every[mesh.rank + 1][:1])] if h1 else []
+    below = [_unplanes(every[mesh.rank - 1][width:])] if h0 else []
+    above = [_unplanes(every[mesh.rank + 1][:width])] if h1 else []
     tsdf, weight = (torch.cat([p[i] for p in below] + [block]
                               + [p[i] for p in above])
                     for i, block in enumerate((vol.tsdf, vol.weight)))

@@ -301,6 +301,37 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
     return vol, wf, wv, wn, (live_v, live_n, live_m), mesh, stats
 
 
+class FusionShardKernels(NamedTuple):
+    """The stages a sharded fusion frame runs otherwise
+    (dist/engine_spmd.sharded_fusion_frame builds them). The rank holds
+    planes x0.. of the volume; the canonical buffer and the nodes are
+    replicated, and the per-vertex stages (the pre-solve warp, the
+    projective association, the solve's data rows, the insertion warp) run
+    on the rank's row range of a buffer.
+
+    * x0: the block's first plane;
+    * halo_fn(vol, width) -> (slab, (h0, h1)): the block with `width` of its
+      neighbours' planes on each side (the band dilation, the
+      re-extraction and its normals);
+    * prefix(counts) -> (before, total): the capacities over all blocks
+      (ops/compaction.py), and the counts summed over ranks;
+    * rows(n) -> (lo, hi): the rank's row range of an n-row buffer;
+    * gather_rows(t, n=None) -> every rank's rows of t in rank order (each
+      rank holding rows(n), or any number of rows);
+    * data_normal_fn: gn.solve's data term, reduced over ranks in rank
+      order (translations);
+    * data_term: se3.solve's, reduced likewise (solver_rotations).
+    """
+
+    x0: int
+    halo_fn: object
+    prefix: object
+    rows: object
+    gather_rows: object
+    data_normal_fn: object
+    data_term: object
+
+
 class FusionFrameStats(NamedTuple):
     """FrameStats of the fusion frame, plus the band-compaction counters."""
 
@@ -354,17 +385,37 @@ def _stage(name: str):
 
 def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
                   pose, *, dp: DynFuParams, intr, config,
-                  solve_enabled: bool = True):
+                  solve_enabled: bool = True,
+                  kernels: Optional[FusionShardKernels] = None):
     """Frame k of the persistent-canonical pipeline (source:
     dynfusion.py:421-590): warp canonical -> projective correspondence
     against the live depth -> solve -> warped integration -> re-extraction
-    of the canonical surface -> node insertion."""
+    of the canonical surface -> node insertion.
+
+    With `kernels` (dist/engine_spmd.sharded_fusion_frame) the volume is the
+    rank's x-block and the per-vertex stages run on its row ranges; the
+    re-extracted canonical (each block's vertices in scan order) is
+    gathered in rank order into the single card's buffer, padding included,
+    and the insertion warp gathered likewise, so the outputs but the volume
+    are replicated, and the counts global."""
     with _stage("inputs"):
         H, W = depth_mm.shape
         dev = depth_mm.device
         dists = imgproc.compute_dists(depth_mm, intr)
         live_pts, live_ns = imgproc.compute_points_normals(depth_mm, intr)
         blend = "dlb" if dp.solver_rotations else "dqb"
+        sharded = kernels is not None
+        # the block's stages (the whole volume's on one card)
+        x0, halo_fn, prefix = 0, None, None
+        data_term, data_normal_fn = se3_solver.DataTerm(), gn.data_normal
+        if sharded:  # the rank's rows of the canonical
+            x0, halo_fn, prefix = kernels.x0, kernels.halo_fn, kernels.prefix
+            data_term = kernels.data_term
+            data_normal_fn = kernels.data_normal_fn
+            lo, hi = kernels.rows(canonical_v.shape[0])
+            canonical_v, canonical_n, canonical_m = (
+                t[lo:hi].contiguous()
+                for t in (canonical_v, canonical_n, canonical_m))
 
     with _stage("warp"):
         # warp canonical -> live with the pre-solve field
@@ -425,7 +476,7 @@ def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
                 rot_prior=dp.se3_rot_prior, trans_prior=dp.se3_trans_prior,
                 similarity_reg=dp.se3_similarity_reg, min_update=min_update,
                 # trust region tied to the association gate (solver/se3.py)
-                max_update=dp.fusion_corr_dist)
+                max_update=dp.fusion_corr_dist, data_term=data_term)
         else:
             data_idx, _, n_pos, _, n_w, n_valid = wfield.neighbor_features(
                 wf, wv, dp.knn)
@@ -437,7 +488,8 @@ def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
                 linear_iter=dp.solver.linear_iter, knn_k=dp.knn,
                 nonlinear_iter=dp.solver.nonlinear_iter,
                 num_iter=dp.solver.num_iter, early_out=dp.solver.early_out,
-                min_update=min_update, max_update=dp.fusion_corr_dist)
+                min_update=min_update, max_update=dp.fusion_corr_dist,
+                data_normal_fn=data_normal_fn)
 
     with _stage("integrate"):
         # fuse the live observations into the canonical volume through the
@@ -445,34 +497,59 @@ def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
         vol, band_stats = vfusion.integrate_warped(
             vol, wf, dists, pose, intr, config, normals=live_ns,
             min_cos=dp.fusion_min_cos, max_active=dp.fusion_max_active,
-            dilate=dp.fusion_dilate, knn_k=dp.knn, blend=blend)
+            dilate=dp.fusion_dilate, knn_k=dp.knn, blend=blend, x0=x0,
+            halo_fn=halo_fn, prefix=prefix)
 
     with _stage("extract"):
         # re-extract the canonical surface with gradient normals, then insert
         # nodes where it is unsupported (warp_field.cpp:63-95): the unique
         # edge vertices (normals from the lattice gradients), or the
-        # marching-cubes soup with extract_normals
+        # marching-cubes soup with extract_normals; on a block, from its
+        # slab with 2 halo planes (the normals' reach)
+        slab, halo = (vol, (0, 0)) if not sharded else halo_fn(vol, 2)
+        block = dict(x0=x0, halo=halo, prefix=prefix)
         if dp.corr_unique_edges:
             mesh_verts, n_verts, mc_dropped, new_n = \
                 edges.isosurface_edge_vertices(
-                    vol, config,
+                    slab, config,
                     max_edges=dp.max_edge_verts or dp.max_vertices // 2,
                     convention="corner",
                     col_budget=dp.edge_col_budget or dp.mc_col_budget,
-                    with_normals=True)
+                    with_normals=True, **block)
         else:
             mesh_verts, n_verts, mc_dropped = marching_cubes(
-                vol, config, max_voxels=dp.max_mc_voxels,
+                slab, config, max_voxels=dp.max_mc_voxels,
                 max_verts=dp.max_vertices, convention="corner",
-                col_budget=dp.mc_col_budget)
-            new_n = tv.extract_normals(vol, mesh_verts, config,
-                                       frame="volume")
+                col_budget=dp.mc_col_budget, **block)
+            new_n = tv.extract_normals(slab, mesh_verts, config,
+                                       frame="volume", x0=x0, halo=halo)
+        del slab
+        if sharded:
+            # the blocks' vertices in rank order: the single card's buffer
+            cap = mesh_verts.shape[0]
+            n = int(n_verts)
+            both = kernels.gather_rows(torch.cat([mesh_verts[:n],
+                                                  new_n[:n]], 1))
+            n_verts = torch.tensor(both.shape[0], dtype=torch.int32,
+                                   device=dev)
+            mesh_verts = torch.zeros((cap, 3), device=dev)
+            new_n = torch.full((cap, 3), torch.nan, device=dev)
+            mesh_verts[:both.shape[0]] = both[:, :3]
+            new_n[:both.shape[0]] = both[:, 3:]
         new_m = torch.arange(mesh_verts.shape[0], device=dev) < n_verts
     with _stage("insert"):
+        rv, rn = mesh_verts, new_n
+        if sharded:
+            lo2, hi2 = kernels.rows(mesh_verts.shape[0])
+            rv, rn = mesh_verts[lo2:hi2].contiguous(), new_n[lo2:hi2]
         if dp.solver_rotations:
-            wv2, wn2 = wfield.warp_points_normals_dlb(wf, mesh_verts, new_n)
+            wv2, wn2 = wfield.warp_points_normals_dlb(wf, rv, rn)
         else:
-            wv2, wn2 = wfield.warp_points_normals(wf, mesh_verts, new_n)
+            wv2, wn2 = wfield.warp_points_normals(wf, rv, rn)
+        if sharded:
+            both = kernels.gather_rows(torch.cat([wv2, wn2], 1),
+                                       mesh_verts.shape[0])
+            wv2, wn2 = both[:, :3], both[:, 3:]
         # candidates outside the volume (+ a truncation margin) were dragged
         # there by a rogue warp
         X, Y, Z = config.dims
@@ -483,6 +560,11 @@ def _fusion_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
             blend=blend,
             aabb=((-m, -m, -m), (X * vsx + m, Y * vsy + m, Z * vsz + m)))
     corr_dropped = torch.sum(canonical_m & ~corr_m, dtype=torch.int32)
+    if sharded:  # the counts over all ranks
+        (mc_dropped, corr_dropped, *band) = (
+            torch.tensor(t, dtype=torch.int32, device=dev)
+            for t in prefix([mc_dropped, corr_dropped, *band_stats])[1])
+        band_stats = vfusion.FusionStats(*band)
     stats = FusionFrameStats(solve_stats, mc_dropped, corr_dropped,
                              band_stats)
     return vol, wf, mesh_verts, new_n, new_m, n_verts, wv2, wn2, stats

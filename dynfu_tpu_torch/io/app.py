@@ -15,9 +15,9 @@ The engine runs on `device` ("cuda" by default; the CPU only when asked
 for).
 
 With devices > 1 (or ranks set by torchrun or DYNFU_*, dist/runtime.py) the
-parity engine runs sharded (dist/driver.ShardedDynFusion): without a
-launcher, `devices` local ranks start through dist.runtime.spawn, this
-process being rank 0. Each rank decodes the frames itself; the collective
+parity or fusion engine runs sharded (dist/driver.ShardedDynFusion):
+without a launcher, `devices` local ranks start through dist.runtime.spawn,
+this process being rank 0. Each rank decodes the frames itself; the collective
 outputs (warped cloud, mesh, render, checkpoint) run on every rank and
 rank 0 alone writes them. `resume` loads the checkpoint on every rank and
 shards it again. The rigid pipeline is not sharded (nor in the source).
@@ -84,10 +84,15 @@ def run_dataset(
     if sharded and rigid:
         raise ValueError("--rigid runs on one device: the rigid pipeline is "
                          "not sharded (nor in dynfu_tpu)")
-    if sharded and (mode or "parity") != "parity":
+    if sharded and (mode or "parity") not in ("parity", "fusion"):
         raise NotImplementedError(
             f"mode {mode!r} on {devices} devices: the sharded engine runs "
-            "parity mode (ROADMAP.md section 1, item 2)")
+            "parity and fusion mode")
+    if (sharded and mode == "fusion" and params is not None
+            and params.fusion_camera_tracking):
+        raise NotImplementedError(
+            "fusion_camera_tracking on the sharded engine (ROADMAP.md "
+            "section 1, item 2): its camera tracking is single-device")
     if sharded and not launched:
         return runtime.spawn(_rank, devices, kw, device=device, inline=True)
     if rigid:
@@ -115,8 +120,8 @@ def run_dataset(
         from dynfu_tpu_torch.dist.driver import ShardedDynFusion
         from dynfu_tpu_torch.dist.spmd import make_mesh
 
-        engine = ShardedDynFusion(params, mesh=make_mesh(devices or None,
-                                                         device))
+        engine = ShardedDynFusion(params, mode=mode or "parity",
+                                  mesh=make_mesh(devices or None, device))
     else:
         engine = DynFusion(params, device=device, mode=mode or "parity")
     primary = runtime.is_primary()

@@ -1,7 +1,8 @@
 """`dynfu-torch` command-line entry point (analog of src/apps/demo.cpp).
 
 Usage: dynfu-torch [--cpu] run [--export-viz] [--frames N] [--volume-dims D]
-                               [--out DIR] [--devices N] <dataset-dir>
+                               [--out DIR] [--mode M] [--devices N]
+                               <dataset-dir>
        dynfu-torch [--cpu] bench [--stages] [--fusion] [--rigid] ...
        dynfu-torch synth <out-dir>
 The dataset dir must contain depth/*.png (16-bit depth in mm), as in the
@@ -57,7 +58,8 @@ def main(argv=None) -> int:
                      help="tracked-set capacity with --fg-box (overflow "
                           "counts as dropped correspondences)")
     run.add_argument("--devices", type=int, default=0,
-                     help="ranks to shard the parity engine over "
+                     help="ranks to shard the engine over (parity or "
+                          "--mode fusion) "
                           "(dynfu_tpu_torch/dist): N > 1 starts N local "
                           "ranks, one per card (NCCL) or sharing cards "
                           "(gloo); under torchrun, or with DYNFU_* set, the "

@@ -48,6 +48,8 @@ SIGNATURES = {
     "dynfu_warp_threads": [_I, _P],
     "dynfu_monomial_grams": [_P, _P, _P, _P, _P, _I, _I, _I,
                              _P, _P, _P, _P, _P],
+    "dynfu_monomial_grams_f64": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P, _P, _P, _P, _P],
     "dynfu_nn1_window": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P, _P],
     "dynfu_nn1_launch": [_I, _P],

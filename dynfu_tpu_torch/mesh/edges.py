@@ -21,7 +21,11 @@ x0 .. x0 + n - 1 plus `halo` = (h0, h1) neighbouring planes below and above
 y- and z-edges; the +1 plane: the block's last x-edges and cells), and
 `prefix` applies the capacities over all blocks (ops/compaction.py): the
 block returns, in scan order, exactly the vertices of its planes that the
-whole volume's extraction keeps, and its own n_dropped.
+whole volume's extraction keeps, and its own n_dropped. The normals'
+central differences read one plane below and two above the block (the
+upper endpoint of its last x-edges and that plane's neighbour), so with
+normals the halo must hold 2 planes above; their NaN rule is read in global
+coordinates.
 """
 
 from __future__ import annotations
@@ -66,9 +70,9 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
     if convention not in ("center", "corner"):
         raise ValueError(f"unknown convention {convention!r}")
     h0, h1 = halo
-    if with_normals and (h0 or h1):
-        raise NotImplementedError("edge normals on an x-block need a halo "
-                                  "of 2 (sharded fusion mode, ROADMAP.md)")
+    if with_normals and 0 < h1 < 2:
+        raise ValueError("edge normals on an x-block need a halo of 2 planes "
+                         "above it (dist/spmd.halo_slab(width=2))")
     Xg, Y, Z = config.dims
     X = vol.tsdf.shape[0]  # the planes held: the whole volume, or a block
     nb = X - h0 - h1  # and its halo
@@ -169,7 +173,7 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
     norms = g / torch.clamp_min(torch.linalg.vector_norm(g, dim=-1,
                                                          keepdim=True), 1e-30)
     gi = torch.round(verts * vs_inv).to(torch.int64)
-    inside = ((gi[:, 0] > 1) & (gi[:, 0] < X - 2)
+    inside = ((gi[:, 0] > 1) & (gi[:, 0] < Xg - 2)
               & (gi[:, 1] > 1) & (gi[:, 1] < Y - 2)
               & (gi[:, 2] > 1) & (gi[:, 2] < Z - 2))
     norms = torch.where((ok & inside)[:, None], norms, torch.nan)

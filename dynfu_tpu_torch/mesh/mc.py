@@ -26,7 +26,8 @@ mesh/mc_cuda.py.
 
 On an x-block of a sharded volume (dist/), `vol` holds the block's planes
 from x0 and `halo` = (h0, h1) neighbouring planes (the cells need the +1
-plane; the -1 plane is not read), and `prefix` applies the capacities over
+plane; the planes below and any beyond the +1 plane are not read), and
+`prefix` applies the capacities over
 all blocks (ops/compaction.py): the block meshes exactly the cells of its
 own that the whole volume's marching cubes meshes, and its soup is the
 whole soup's rows from the blocks before it on, cut at `max_verts` as the
@@ -56,7 +57,9 @@ def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
         raise ValueError(f"unknown convention {convention!r}")
     Xg, Y, Z = config.dims
     dev = vol.tsdf.device
-    F, Wt = vol.tsdf[halo[0]:], vol.weight[halo[0]:]
+    h0, h1 = halo
+    end = vol.tsdf.shape[0] - max(h1 - 1, 0)
+    F, Wt = vol.tsdf[h0:end], vol.weight[h0:end]
     X = F.shape[0]  # the planes from x0 on: the block's and its +1 plane
     offs = tables.CORNER_OFFSETS
 

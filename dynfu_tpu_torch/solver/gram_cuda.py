@@ -9,13 +9,14 @@ bf16 split is a TPU device, not carried over.
 Both kernels sum every entry in one fixed order (csrc/gram_gather.cuh), in
 float64, and round once to float32, so they give the same bits on every
 launch; `gram_fixed_order` is a plain model of that order, for the tests
-and chip_smoke.py (on no main path). The data Gram's plain version sums in
-float64 too, in index_add_'s order; the monomial Grams' in float32. Kernel
-and plain version agree to float32 roundoff.
+and chip_smoke.py (on no main path). Both plain versions sum in float64
+too, in index_add_'s order. Kernel and plain version agree to float32
+roundoff.
 
-`data_normal(..., partial=True)` returns the data Gram's float64 sums before
-the rounding: the partial Gram of a row range, which the sharded solve
-(dist/shard_gram.py) adds over ranks in rank order and rounds once.
+`data_normal(..., partial=True)` and `monomial_grams(..., partial=True)`
+return the float64 sums before the rounding: the partial Grams of a row
+range, which the sharded solves (dist/shard_gram.py) add over ranks in rank
+order and round once.
 """
 
 from __future__ import annotations
@@ -120,8 +121,8 @@ def gram_fixed_order(data_idx, data_w, s2, delta, D: int, warps: int,
     (s2 v_i) delta, resp. (v_i rs) (delta, y x delta). Node i's marked
     chunks of 32 rows (those holding it) are cut by rank into `warps`
     shares; each share sums from +0.0 in row order; the shares are summed
-    in order and rounded once to float32 (the data Gram with `partial`:
-    left in float64). On the CPU index_add_ adds in index order."""
+    in order and rounded once to float32 (with `partial`: left in
+    float64). On the CPU index_add_ adds in index order."""
     mono = y is not None
     N, K = data_idx.shape
     dev = data_w.device
@@ -157,7 +158,7 @@ def gram_fixed_order(data_idx, data_w, s2, delta, D: int, warps: int,
         tot = acc[0]
         for g in range(1, warps):
             tot = tot + acc[g]
-        return tot if partial and not mono else tot.to(torch.float32)
+        return tot if partial else tot.to(torch.float32)
 
     def summed(keys, vals, width):
         """vals (E, ...) into (warps * width, ...) at keys, in index
@@ -248,34 +249,39 @@ def monomials(y):
                         yx * yz, yy * yy, yy * yz, yz * yz])  # (10, N)
 
 
-def monomial_grams_plain(data_idx, data_w, s2, y, delta, D: int):
+def monomial_grams_plain(data_idx, data_w, s2, y, delta, D: int,
+                         partial: bool = False):
+    """The terms (float64 from the float32 weights rs * w) and their sums in
+    float64, rounded once to float32 unless `partial`."""
     kernels.count_plain(monomial_grams_plain, data_idx)
-    N, K = data_idx.shape
     dev = data_w.device
+    f64 = torch.float64
     idx = data_idx.to(torch.int64)
     ok = (idx >= 0) & (idx < D)
     rs = torch.sqrt(torch.clamp_min(s2, 0.0))
-    ws = torch.where(ok, rs[:, None] * data_w, 0.0)  # (N, K)
+    ws = torch.where(ok, rs[:, None] * data_w, 0.0).to(f64)  # (N, K)
     idx = torch.where(ok, idx, 0)
     pair = ws[:, :, None] * ws[:, None, :]  # (N, K, K), zero off the rows
-    terms = pair[None] * monomials(y)[:, :, None, None]  # (10, N, K, K)
+    terms = pair[None] * monomials(y.to(f64))[:, :, None, None]
     flat = (idx[:, :, None] * D + idx[:, None, :]).reshape(-1)
     flat = (torch.arange(10, device=dev)[:, None] * (D * D)
             + flat[None, :]).reshape(-1)
-    B = torch.zeros(10 * D * D, dtype=torch.float32, device=dev)
+    B = torch.zeros(10 * D * D, dtype=f64, device=dev)
     B.index_add_(0, flat, terms.reshape(-1))
-    dx, dy, dz = delta.unbind(-1)
-    yx, yy, yz = y.unbind(-1)
+    d = delta.to(f64)
+    dx, dy, dz = d.unbind(-1)
+    yx, yy, yz = y.to(f64).unbind(-1)
     cross = torch.stack([yy * dz - yz * dy, yz * dx - yx * dz,
                          yx * dy - yy * dx], -1)
     rhs = []
-    for v in (delta, cross):
-        acc = torch.zeros((D, 3), dtype=torch.float32, device=dev)
+    for v in (d, cross):
+        acc = torch.zeros((D, 3), dtype=f64, device=dev)
         acc.index_add_(0, idx.reshape(-1),
-                       (ws[:, :, None] * (rs[:, None] * v)[:, None, :]
+                       (ws[:, :, None] * (rs.to(f64)[:, None] * v)[:, None, :]
                         ).reshape(-1, 3))
         rhs.append(acc)
-    return B.reshape(10, D, D), rhs[0], rhs[1]
+    out = (B.reshape(10, D, D), rhs[0], rhs[1])
+    return out if partial else tuple(t.to(torch.float32) for t in out)
 
 
 monomial_grams_plain.cuda_calls = 0
@@ -283,14 +289,15 @@ monomial_grams_plain.cuda_calls = 0
 
 def monomial_grams(data_idx: torch.Tensor, data_w: torch.Tensor,
                    s2: torch.Tensor, y: torch.Tensor, delta: torch.Tensor,
-                   D: int):
+                   D: int, partial: bool = False):
     """data_idx (N, K) int32 (indices outside [0, D) are padding), data_w
     (N, K) f32, s2 (N,) f32 >= 0, y (N, 3) f32, delta (N, 3) f32 -> (B (10,
     D, D), Bu (D, 3), Bw (D, 3)) f32: B[m] = (sqrt(s2) W)^T diag(mono_m(y))
     (sqrt(s2) W) over `monomials`, Bu = W^T (s2 delta), Bw = W^T (s2 (y x
-    delta))."""
+    delta)); with `partial` the float64 sums before their rounding."""
     if not kernels.on_cuda(data_idx, "monomial_grams"):
-        return monomial_grams_plain(data_idx, data_w, s2, y, delta, D)
+        return monomial_grams_plain(data_idx, data_w, s2, y, delta, D,
+                                    partial)
     N, K = data_idx.shape
     dev = data_idx.device
     kernels.require(data_idx, "data_idx", torch.int32, (N, K), dev)
@@ -298,12 +305,15 @@ def monomial_grams(data_idx: torch.Tensor, data_w: torch.Tensor,
     kernels.require(s2, "s2", torch.float32, (N,), dev)
     kernels.require(y, "y", torch.float32, (N, 3), dev)
     kernels.require(delta, "delta", torch.float32, (N, 3), dev)
-    B = torch.empty((10, D, D), dtype=torch.float32, device=dev)
-    Bu = torch.empty((D, 3), dtype=torch.float32, device=dev)
-    Bw = torch.empty((D, 3), dtype=torch.float32, device=dev)
+    dtype = torch.float64 if partial else torch.float32
+    B = torch.empty((10, D, D), dtype=dtype, device=dev)
+    Bu = torch.empty((D, 3), dtype=dtype, device=dev)
+    Bw = torch.empty((D, 3), dtype=dtype, device=dev)
     lib = kernels.load()
     scratch = _scratch(lib, N, D, dev)
-    kernels.check(lib.dynfu_monomial_grams(
+    entry = (lib.dynfu_monomial_grams_f64 if partial
+             else lib.dynfu_monomial_grams)
+    kernels.check(entry(
         data_idx.data_ptr(), data_w.data_ptr(), s2.data_ptr(), y.data_ptr(),
         delta.data_ptr(), N, K, D, scratch.data_ptr(), B.data_ptr(),
         Bu.data_ptr(), Bw.data_ptr(), kernels.stream(data_idx)),

@@ -22,7 +22,11 @@ the rejection of a step that raises the data cost more than 100x, the
 min_update deadband and the max_update sweep gate. The source's one-hot
 fetches become direct index reads. IEEE float32 throughout: every
 contraction here is elementwise or a float32 matrix product, and the
-package turns TF32 off at import (dynfu_tpu_torch/__init__.py).
+package turns TF32 off at import (dynfu_tpu_torch/__init__.py). The data
+costs are summed in float64 and rounded once, as gn's c0 is. The only sums
+over the data rows, the Grams and the costs, go through `DataTerm`, which
+the sharded solve (dist/shard_gram.py) replaces by its ranks' float64
+partials added in rank order.
 
 Not copied: the source's fixed 10 pointer-jumping rounds for the
 similarity-mode component labels (se3.py:302), which can stop short on a
@@ -39,8 +43,9 @@ import torch
 from dynfu_tpu_torch.core import dualquat as dq
 from dynfu_tpu_torch.ops import segsum
 from dynfu_tpu_torch.solver import gram_cuda
-from dynfu_tpu_torch.solver.gn import pcg, tukey_biweights
+from dynfu_tpu_torch.solver.gn import data_cost64, pcg, tukey_biweights
 from dynfu_tpu_torch.warp import field as wfield
+
 
 class Se3Stats(NamedTuple):
     initial_cost: torch.Tensor
@@ -200,8 +205,27 @@ def _exp_update_dq(xi, pos):
     return dq.dq_from_quat_translation(rot, u + pos - rp)
 
 
-def _data_cost(s2, live_v, y):
-    return torch.sum(s2 * torch.sum((live_v - y) ** 2, -1))
+def data_cost(s2, delta):
+    """The data cost sum s2 |delta|^2, summed in float64 and rounded once."""
+    return data_cost64(s2, delta).to(torch.float32)
+
+
+def data_grams(data_idx, data_w, s2, y_c, delta, D: int):
+    """(B, Bu, Bw, cost): the monomial Grams of the rows (the kernel) and
+    their data cost."""
+    B, Bu, Bw = gram_cuda.monomial_grams(data_idx, data_w, s2, y_c, delta, D)
+    return B, Bu, Bw, data_cost(s2, delta)
+
+
+class DataTerm(NamedTuple):
+    """The solve's sums over the data rows, as gn.solve's data_normal_fn:
+    grams(data_idx, data_w, s2, y_c, delta, D) -> (B, Bu, Bw, cost) and
+    cost(s2, delta) -> cost. The sharded solve (dist/shard_gram.py) passes
+    its rows' sums, reduced over ranks in rank order; everything else in
+    the solve is per row or per node."""
+
+    grams: object = data_grams
+    cost: object = data_cost
 
 
 def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
@@ -211,7 +235,8 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
           knn_k: int = wfield.KNN, relinearize: int = 3,
           min_update: float = 0.0, max_update: float = 0.0,
           incremental: bool = False, rot_prior: float = 0.03,
-          trans_prior: float = 0.0, similarity_reg: bool = False):
+          trans_prior: float = 0.0, similarity_reg: bool = False,
+          data_term: DataTerm = DataTerm()):
     """SE(3) warp solve: (updated WarpField, Se3Stats).
 
     `relinearize` Gauss-Newton steps, each re-warping y through the fixed
@@ -219,7 +244,8 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
     them by PCG; Tukey weights come once from the incoming state.
     `incremental`: canonical_v is ALREADY warped by the current field (the
     fusion engine's convention), so the blend starts from the identity and
-    the solved updates compose onto the node DQs."""
+    the solved updates compose onto the node DQs. `data_term` sums over
+    the rows (the costs: float64, rounded once)."""
     dev = wf.pos.device
     f32 = torch.float32
     canonical_v = torch.as_tensor(canonical_v, dtype=f32, device=dev)
@@ -262,15 +288,17 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
               / torch.clamp_min(torch.sum(m_act), 1.0))
     pos_c = torch.where(mask_c, wf.pos - center, 0.0)
 
-    initial_cost = _data_cost(s2, live_v, y0)
     idx64 = data_idx.to(torch.int64)
     upd, y = ident.expand(D, 8), y0
+    initial_cost = cost = None  # the data cost at y
     for _ in range(max(relinearize, 1)):
         wf_cur = wf._replace(dqs=torch.where(mask_c, dq.dq_mul(upd, wf.dqs),
                                              wf.dqs))
         delta = (live_v - y).contiguous()
-        B, Bu, Bw = gram_cuda.monomial_grams(
+        B, Bu, Bw, cost = data_term.grams(
             data_idx, data_w, s2, (y - center).contiguous(), delta, D)
+        if initial_cost is None:
+            initial_cost = cost
         A_d, b_d = _assemble_data(B, Bu, Bw, pos_c, D)
         A_r, b_r, _ = _assemble_reg(wf_cur, reg_idx, edge_mask, reg_w2, D,
                                     psi_reg=psi_reg, similarity=similarity_reg)
@@ -302,9 +330,11 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
                                            n_valid)
         y2 = dq.dq_transform_point(blend2, canonical_v)
         # reject a step that raises the data cost by orders of magnitude
-        ok = _data_cost(s2, live_v, y2) <= 100.0 * _data_cost(s2, live_v, y)
+        cost2 = data_term.cost(s2, (live_v - y2).contiguous())
+        ok = cost2 <= 100.0 * cost
         upd = torch.where(ok, upd2, upd)
         y = torch.where(ok, y2, y)
+        cost = torch.where(ok, cost2, cost)
 
     if min_update > 0.0 or max_update > 0.0:
         # deadband on the node's own displacement |upd(p_k) - p_k|, and the
@@ -322,7 +352,7 @@ def solve(wf: wfield.WarpField, canonical_v, live_v, vert_mask=None, *,
             keep = keep & (sweep <= max_update)[:, None]
         upd = torch.where(keep, upd, ident)
 
-    final_cost = _data_cost(s2, live_v, y)
+    final_cost = cost
     real = upd[:, :4]
     ang = 2.0 * torch.arccos(torch.clamp(
         torch.abs(real[:, 0]) / torch.linalg.vector_norm(real, dim=-1),

@@ -32,12 +32,14 @@ then `frames` timed frames with one synchronize at the half-way mark (where
 the half-motion error is read) and one at the end. It reports the median
 distance of the warped canonical from the live sphere (warped_err_mm, and
 warped_err_half_motion_mm) and of the canonical surface from the frame-0
-sphere (canonical_err_mm). With camera_motion > 0 the camera moves that far
-along y per frame, fusion_camera_tracking recovers it, four static anchor
-spheres give the ICP background to track, and the deforming sphere breathes
-(its radius oscillates) instead of translating, so that camera motion and
-deformation are separable; only the breathing sphere is scored, in the
-world (volume) frame.
+sphere (canonical_err_mm). With a `mesh`, as in run_benchmark, every rank
+runs it on the sharded engine (fusion mode; not with camera_motion, whose
+camera tracking the sharded engine refuses). With camera_motion > 0 the
+camera moves that far along y per frame, fusion_camera_tracking recovers
+it, four static anchor spheres give the ICP background to track, and the
+deforming sphere breathes (its radius oscillates) instead of translating,
+so that camera motion and deformation are separable; only the breathing
+sphere is scored, in the world (volume) frame.
 
 run_umbrella_benchmark: the synthetic Kinect-v1 umbrella sequence
 (io/kinect_sim.py) in parity mode, at >= 384^3 with foreground tracking
@@ -296,10 +298,15 @@ def run_fusion_benchmark(volume_dims: int = 512, frames: int = 12,
                          warmup: int = 3, rows: int = 480, cols: int = 640,
                          rotations: bool = False, camera_motion: float = 0.0,
                          similarity_reg: bool = False, *,
-                         device="cuda") -> dict:
-    engine = DynFusion(fusion_params(volume_dims, rows, cols, rotations,
-                                     camera_motion, similarity_reg),
-                       device=device, mode="fusion")
+                         device="cuda", mesh=None) -> dict:
+    params = fusion_params(volume_dims, rows, cols, rotations, camera_motion,
+                           similarity_reg)
+    if mesh is None:
+        engine = DynFusion(params, device=device, mode="fusion")
+    else:  # every rank of the mesh runs this, the sharded engine
+        from dynfu_tpu_torch.dist.driver import ShardedDynFusion
+
+        engine = ShardedDynFusion(params, mode="fusion", mesh=mesh)
     vol_t = np.asarray((-1.5, -1.5, 0.5))
     radius = 0.5
     n_total = warmup + frames
@@ -362,6 +369,8 @@ def run_fusion_benchmark(volume_dims: int = 512, frames: int = 12,
         "mc_dropped": mc_dropped,
         "n_captured": n_captured,
         "device": _device_name(engine.device),
+        "ranks": 1 if mesh is None else mesh.world,
+        "backend": None if mesh is None else mesh.backend,
     }
 
 

@@ -16,9 +16,11 @@ tracking's canonical (the compaction of the restored canonical to the box).
 Fusion mode's tracking pyramid (prev_live_pyr) is not in the format; a
 fusion engine with camera tracking restarts it on its next frame.
 
-A sharded engine (dist/driver.ShardedDynFusion) saves its gathered state
-from rank 0 (every rank takes part in the gather) and loads on every rank,
-then shards the restored state again; the file is the same format.
+A sharded engine (dist/driver.ShardedDynFusion, parity or fusion mode)
+saves its gathered state from rank 0 (every rank takes part in the gather;
+fusion mode's canonical and warped canonical are replicated already, so
+only its volume is gathered) and loads on every rank, then shards the
+restored state again; the file is the same format.
 """
 
 from __future__ import annotations

@@ -22,6 +22,15 @@ cosine is still rounded to float16 as the source's packing does.
 The port updates the volume IN PLACE (index_put_ at the unique band
 indices), where the source returns a new array: the 512^3 float16 volume is
 268 MB.
+
+On an x-block of a sharded volume (dist/), `vol` holds planes x0 .. x0 +
+n - 1; `halo_fn(vol, width)` gives the block with `width` of its
+neighbours' planes on each side (dist/spmd.halo_slab), on which the band is
+dilated across the block faces, and `prefix` applies the band capacities
+over all blocks (ops/compaction.py): the block captures exactly the band
+voxels of its planes that the whole volume's compaction captures, warps
+them at their global coordinates and updates them in place. Its counters
+are then its own; the sharded frame sums them over ranks.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ def integrate_warped(vol: TsdfVolume, wf: WarpField, dists: torch.Tensor,
                      camera_pose, intr: Intr, config: TsdfConfig, *,
                      normals: torch.Tensor | None = None,
                      min_cos: float = 0.0, max_active: int = 1 << 19,
-                     dilate: int = 2, knn_k: int = 4, blend: str = "dqb"):
+                     dilate: int = 2, knn_k: int = 4, blend: str = "dqb",
+                     x0: int = 0, halo_fn=None, prefix=None):
     """Fuse one live depth frame into the canonical volume through the warp.
 
     dists (H, W) float16 meters; camera_pose (R, t) world <- camera;
@@ -59,7 +69,8 @@ def integrate_warped(vol: TsdfVolume, wf: WarpField, dists: torch.Tensor,
     n_captured < n_band signals a band-capacity overflow. (The source's
     `col_budget` argument is ignored there — its band capture has no
     per-column budget — and is not ported.)"""
-    X, Y, Z = config.dims
+    Xg, Y, Z = config.dims
+    X = vol.tsdf.shape[0]  # the planes held: the whole volume, or a block
     vsx, vsy, vsz = config.voxel_size
     H, W = dists.shape
     dev = vol.tsdf.device
@@ -67,16 +78,21 @@ def integrate_warped(vol: TsdfVolume, wf: WarpField, dists: torch.Tensor,
     F16, Wu8 = vol.tsdf, vol.weight
 
     # active band: observed near-surface voxels (far free space saturates at
-    # exactly +1) plus a growth margin
-    band = (Wu8 > 0) & (F16 < 1.0)
+    # exactly +1) plus a growth margin; on a block, dilated on the slab of
+    # its planes and `dilate` of its neighbours' on each side
+    slab, (h0, _) = (vol, (0, 0)) if halo_fn is None or dilate <= 0 \
+        else halo_fn(vol, dilate)
+    band = (slab.weight > 0) & (slab.tsdf < 1.0)
+    del slab
     if dilate > 0:
         band = compaction.dilate_xy(compaction.dilate_z(band, dilate),
-                                    dilate)
+                                    dilate)[h0:h0 + X]
     nwords = (Z + 31) // 32
     flat_idx, n_band, n_captured = compaction.extract_bits(
         band.reshape(X * Y, Z), max_out=max_active, row_stride=Z,
-        fill=X * Y * Z, max_words=min(X * Y * nwords,
-                                      max(max_active // 4, 1 << 15)))
+        fill=X * Y * Z, max_words=min(Xg * Y * nwords,
+                                      max(max_active // 4, 1 << 15)),
+        prefix=prefix)
     del band
     ok = flat_idx < X * Y * Z
     safe = torch.where(ok, flat_idx, 0)
@@ -86,7 +102,7 @@ def integrate_warped(vol: TsdfVolume, wf: WarpField, dists: torch.Tensor,
     vz = rem - vy * Z
 
     # voxel CORNER coordinates, the rigid integrator's convention
-    p_vol = torch.stack([vx.to(f32) * vsx, vy.to(f32) * vsy,
+    p_vol = torch.stack([(vx + x0).to(f32) * vsx, vy.to(f32) * vsy,
                          vz.to(f32) * vsz], -1)
     p_warp, _, _, ratio = warp_cuda.warp_fused(
         p_vol, torch.zeros_like(p_vol), wf.pos, wf.dqs, wf.w, wf.mask,

@@ -231,15 +231,19 @@ def _ray_box(ray_org, ray_dir, box_max):
     return tnear, tfar
 
 
-def _compute_normal(tsdf, vertex, voxel_size_inv, gradient_delta):
+def _compute_normal(tsdf, vertex, voxel_size_inv, gradient_delta,
+                    x_off: int = 0):
     """Central-difference TSDF gradient, normalised
-    (tsdf_volume.cu:330-346)."""
+    (tsdf_volume.cu:330-346). `tsdf` may hold planes x_off.. of the volume:
+    the samples' voxel coordinates are shifted by the whole planes x_off,
+    exactly."""
+    shift = torch.tensor([float(x_off), 0.0, 0.0], device=vertex.device)
     comps = []
     for axis in range(3):
         off = torch.zeros(3, dtype=torch.float32, device=vertex.device)
         off[axis] = gradient_delta[axis]
-        f1 = interpolate(tsdf, (vertex + off) * voxel_size_inv)
-        f2 = interpolate(tsdf, (vertex - off) * voxel_size_inv)
+        f1 = interpolate(tsdf, (vertex + off) * voxel_size_inv - shift)
+        f2 = interpolate(tsdf, (vertex - off) * voxel_size_inv - shift)
         comps.append((f1 - f2) / gradient_delta[axis])
     n = torch.stack(comps, -1)
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
@@ -389,12 +393,20 @@ def extract_cloud(vol: TsdfVolume, config: TsdfConfig,
 
 
 def extract_normals(vol: TsdfVolume, points: torch.Tensor,
-                    config: TsdfConfig, frame: str = "world") -> torch.Tensor:
+                    config: TsdfConfig, frame: str = "world", x0: int = 0,
+                    halo=(0, 0)) -> torch.Tensor:
     """TSDF-gradient normals at `points` (ExtractNormals,
     tsdf_volume.cu:602-679): NaN unless the nearest voxel lies in
     [2, dims - 2)^3; n = normalize(pose_R grad). With frame="volume" the
     points are in the volume frame (marching-cubes output) and so are the
-    normals (no pose on either side)."""
+    normals (no pose on either side).
+
+    On an x-block of a sharded volume (dist/), `vol` holds the block's
+    planes from x0 with `halo` = (h0, h1) neighbouring planes below and
+    above: the normals of points in the block's cells (the x-extent
+    [x0, x0 + n] voxels) are the whole volume's, bit for bit, with one
+    plane below and two above (their samples reach a voxel beyond the
+    cells' upper plane); the NaN rule is read in global coordinates."""
     if frame not in ("world", "volume"):
         raise ValueError(f"unknown frame {frame!r}")
     X, Y, Z = config.dims
@@ -409,7 +421,8 @@ def extract_normals(vol: TsdfVolume, points: torch.Tensor,
     inside = ((g[..., 0] > 1) & (g[..., 0] < X - 2)
               & (g[..., 1] > 1) & (g[..., 1] < Y - 2)
               & (g[..., 2] > 1) & (g[..., 2] < Z - 2))
-    n = _compute_normal(vol.tsdf, p_vol, vs_inv, gradient_delta)
+    n = _compute_normal(vol.tsdf, p_vol, vs_inv, gradient_delta,
+                        x0 - halo[0])
     if frame == "world":
         n = n @ vol.pose_r.T
     return torch.where(inside[..., None], n, torch.nan)

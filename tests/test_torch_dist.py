@@ -1,6 +1,6 @@
-"""The sharded parity engine (dynfu_tpu_torch/dist) on the CPU, over two gloo
-ranks, against the JAX package's dist/ on a 2-device sub-mesh of conftest's
-virtual devices and against the port's single-card engine.
+"""The sharded parity and fusion engines (dynfu_tpu_torch/dist) on the CPU,
+over two gloo ranks, against the JAX package's dist/ on a 2-device sub-mesh
+of conftest's virtual devices and against the port's single-card engine.
 
 One `runtime.spawn` starts two ranks that run every sharded job
 (dist/worker.py) and write their outputs to .npz files; the ranks never
@@ -17,7 +17,15 @@ import jax. Meanwhile this process compiles each JAX program once. Then:
   DynFusion, bitwise, for marching cubes and unique edges, and with a
   capacity that overflows inside rank 1's block;
 * runtime.init_distributed / is_primary / the backend choice, and
-  run_dataset(devices=2) writing the exports of devices=1.
+  run_dataset(devices=2) writing the exports of devices=1;
+* fusion mode: the monomial Grams' float64 partial mode on two ranks
+  (bitwise one rank's; JAX's kernel in interpret mode within 1e-5), one
+  sharded fusion frame from JAX's frame-0 state against JAX's
+  sharded_fusion_frame (SE(3) and translations), the 2-rank fusion driver
+  over 4 frames bitwise the single card's (marching cubes with
+  translations, unique edges with SE(3), a band capacity cut inside rank
+  1's block after a warm-up frame), resumed from its checkpoint, and
+  run_dataset(mode="fusion", devices=2) writing devices=1's exports.
 """
 
 import contextlib
@@ -25,6 +33,7 @@ import dataclasses
 import filecmp
 import functools
 import os
+import queue
 import subprocess
 import sys
 import threading
@@ -49,11 +58,12 @@ from dynfu_tpu.engine.params import DynFuParams as JDynFuParams
 from dynfu_tpu.engine.params import KinFuParams as JKinFuParams
 from dynfu_tpu.io.datasets import sphere_depth
 from dynfu_tpu.ops import knn_pallas
+from dynfu_tpu.solver import gram_pallas
 from dynfu_tpu.warp import field as jfield
 from dynfu_tpu_torch.dist import runtime, shard_gram, spmd, worker
 from dynfu_tpu_torch.engine.dynfusion import DynFusion
-from dynfu_tpu_torch.io.app import run_dataset
-from dynfu_tpu_torch.ops import warp_cuda
+from dynfu_tpu_torch.io.app import dataset_params, run_dataset
+from dynfu_tpu_torch.ops import compaction, warp_cuda
 from dynfu_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -81,6 +91,36 @@ VARIANTS = {
                                      max_edge_verts=200),
     "mc_cap": dataclasses.replace(PARAMS, max_mc_voxels=100),
 }
+
+# fusion mode: tests/test_dist.py's fusion-frame parameters and its next
+# frame; the SE(3) frame with one relinearisation, as the 512^3 fusion
+# preset has it (DynFuParams.caps_for_volume)
+JFPARAMS = dataclasses.replace(JPARAMS, fusion_max_active=1 << 15)
+JFPARAMS_SE3 = dataclasses.replace(JFPARAMS, solver_rotations=True,
+                                   se3_relinearize=1)
+FPARAMS = convert.params(JFPARAMS)
+F_D1 = np.asarray(sphere_depth((0.008, 0.0, 1.5), 0.5, ROWS, COLS, INTR.fx,
+                               INTR.fy, INTR.cx, INTR.cy), np.int32)
+# the fusion drives: marching cubes with translations, unique edges with
+# SE(3), and a band capacity cut inside rank 1's block (the band straddles
+# the block boundary; rank 0's block holds about half of its ~3570 voxels)
+# after a warm-up frame
+BAND_CAP = 3000
+FUSION_VARIANTS = {
+    "mc_t": FPARAMS,
+    "edges_se3": dataclasses.replace(FPARAMS, corr_unique_edges=True,
+                                     max_edge_verts=1 << 12,
+                                     solver_rotations=True),
+    "band_cap": dataclasses.replace(FPARAMS, fusion_max_active=BAND_CAP,
+                                    fusion_warmup_frames=1),
+}
+RESUME_AFTER = 1  # the resumed drive: edges_se3 saved after frame 1
+# the app in fusion mode: its 64^3 parameters with the capacities cut to
+# the scene (the 640x480 umbrella frames' band holds ~20k voxels; the
+# defaults' 2^19 band slots and 1024 nodes take minutes on the CPU)
+APP_FUSION = dataclasses.replace(
+    dataset_params((480, 640), 64), fusion_max_active=1 << 15,
+    max_nodes=128, max_new_nodes=64, max_vertices=1 << 14)
 
 
 def _ops_inputs():
@@ -119,22 +159,28 @@ def _ops_inputs():
             rng.rand(N, K).astype(np.float32),
             rng.rand(N).astype(np.float32),
             rng.randn(N, 3).astype(np.float32), D)
-    return warp, corr, gram
+    # the monomial Grams: the Gram's rows with y (N = 256, D = 64)
+    mono = gram[:3] + ((rng.randn(N, 3) * 0.3).astype(np.float32),
+                       (rng.randn(N, 3) * 0.01).astype(np.float32), D)
+    return warp, corr, gram, mono
 
 
 def _jax_state(e):
-    """The JAX engine's state as numpy, utils/convert's keywords."""
-    return dict(
+    """The JAX engine's state as numpy, utils/convert's keywords (fusion
+    mode has no soup dedup state)."""
+    st = dict(
         vol=tuple(np.array(a) for a in e.vol),
         wf=tuple(np.array(a) for a in e.warpfield),
         canonical=(e.canonical.idx, np.array(e.canonical.vertices),
                    np.array(e.canonical.normals),
                    np.array(e.canonical.mask)),
-        soup_inverse=np.array(e.soup_inverse),
-        soup_mask=np.array(e.soup_mask),
-        canonical_mult=np.array(e.canonical_mult),
         frame_counter=e.frame_counter,
         poses=[(np.array(R), np.array(t)) for R, t in e.poses])
+    if e.soup_inverse is not None:
+        st.update(soup_inverse=np.array(e.soup_inverse),
+                  soup_mask=np.array(e.soup_mask),
+                  canonical_mult=np.array(e.canonical_mult))
+    return st
 
 
 @contextlib.contextmanager
@@ -156,10 +202,14 @@ def _jax_knn_through_pallas():
 
 
 class _Background:
-    """fn(*args) in a thread; join() re-raises its exception."""
+    """fn(*args) in a thread; join() re-raises its exception. With
+    `state`, fn gets a queue as its last argument (self.state)."""
 
-    def __init__(self, fn, *args, **kw):
+    def __init__(self, fn, *args, state: bool = False, **kw):
         self.err = None
+        if state:
+            self.state = queue.Queue()
+            args = args + (self.state,)
         self.thread = threading.Thread(target=self._run, args=(fn, args, kw))
         self.thread.start()
 
@@ -190,11 +240,61 @@ def _app(out_dir, devices, **kw):
                        checkpoint_every=2, **kw)
 
 
-def _app2(out, resumed):
+def _app2(out, resumed, fusion1, fusion2):
     """devices=2 over the three frames, then resumed from its checkpoint
-    (after frame 1) over frame 2."""
+    (after frame 1) over frame 2; then fusion mode on devices=1 and 2."""
     assert _app(out, 2) == 0
     assert _app(resumed, 2, resume=str(out / "checkpoint.npz")) == 0
+    assert _app(fusion1, 1, mode="fusion", params=APP_FUSION) == 0
+    assert _app(fusion2, 2, mode="fusion", params=APP_FUSION) == 0
+
+
+def _band0(vol, dilate: int) -> int:
+    """The dilated fusion band's voxels in rank 0's block of planes (the
+    lower half of the volume's x planes)."""
+    band = (vol.weight > 0) & (vol.tsdf < 1.0)
+    band = compaction.dilate_xy(compaction.dilate_z(band, dilate), dilate)
+    return int(band[:band.shape[0] // 2].sum())
+
+
+def _jax_fusion_frames(mesh, jfeng, jax_out, state):
+    """jfeng's frame 0, then JAX's sharded_fusion_frame from it over F_D1,
+    translations and SE(3), into jax_out["fusion_t"] and ["fusion_se3"].
+    Puts the frame-0 state into the queue `state`, then "traced" once both
+    programs are traced (their k-NN through XLA's formulation: the caller
+    may then patch it), or None on an error."""
+    try:
+        jfeng(FRAMES[0])
+        state.put(_jax_state(jfeng))
+        c = jfeng.canonical
+        placed = jengine_spmd.place_engine_state(
+            mesh, jfeng.vol, jfeng.warpfield, c.vertices, c.normals, c.mask,
+            jnp.asarray(F_D1), jfeng.poses[-1])
+        lowered = {k: jengine_spmd.sharded_fusion_frame(
+            mesh, jp, INTR, jfeng.tsdf_config).lower(*placed)
+            for k, jp in (("t", JFPARAMS), ("se3", JFPARAMS_SE3))}
+    except BaseException:
+        state.put(None)
+        raise
+    state.put("traced")
+    for k, low in lowered.items():
+        jax_out[f"fusion_{k}"] = jax.tree_util.tree_map(
+            np.asarray, low.compile()(*placed))
+
+
+def _single_fusion(prm):
+    """The single-card fusion engine over FRAMES: per frame k >= 1 the
+    canonical, the warped cloud, the stats and the band voxels in rank 0's
+    block before the frame; the final node state."""
+    eng = DynFusion(prm, device="cpu", mode="fusion")
+    rec = {}
+    for i, d in enumerate(FRAMES):
+        band0 = _band0(eng.vol, prm.fusion_dilate) if i else None
+        eng(d)
+        if i:
+            rec[i] = (eng.canonical, eng.warped_cloud(),
+                      eng.last_frame_stats, band0)
+    return rec, eng.warpfield
 
 
 @pytest.fixture(scope="module")
@@ -209,31 +309,51 @@ def _runs(tmp_path_factory):
     """Every sharded job on two gloo ranks, beside each JAX program once and
     the port's single-card references. Alongside: run_dataset on three
     umbrella frames at 64^3, checkpointing after frame 1, once on one rank
-    (first: this process then joins the app's process group, as its rank 0,
-    in a thread), once on two and resumed on two; and the import check in a
-    fresh interpreter."""
+    in parity and in fusion mode (first: this process then joins the app's
+    process group, as its rank 0, in a thread), on two, resumed on two, and
+    in fusion mode on two; and the import check in a fresh interpreter."""
     out = tmp_path_factory.mktemp("ranks")
-    app = {n: tmp_path_factory.mktemp(f"app_{n}") for n in (1, 2, "resumed")}
+    ckpt = tmp_path_factory.mktemp("ckpt") / "fusion.npz"
+    app = {n: tmp_path_factory.mktemp(f"app_{n}")
+           for n in (1, 2, "resumed", "fusion1", "fusion2")}
     lazy = subprocess.Popen([sys.executable, "-c", LAZY], cwd=REPO)
     assert _app(app[1], 1) == 0
-    app2 = _Background(_app2, app[2], app["resumed"])
-    warp, corr, gram = _ops_inputs()
+    app2 = _Background(_app2, app[2], app["resumed"], app["fusion1"],
+                       app["fusion2"])
+    warp, corr, gram, mono = _ops_inputs()
+    # JAX on a 2-device sub-mesh, each program compiled once: frames 0,
+    # parity and fusion, then the sharded fusion frames in a thread (XLA
+    # compiles without the GIL)
+    mesh = jmake_mesh(2)
+    jax_out = {}
+    jfeng = JDynFusion(JFPARAMS, mode="fusion")
+    jfusion = _Background(_jax_fusion_frames, mesh, jfeng, jax_out,
+                          state=True)
     jeng = JDynFusion(JPARAMS)
     jeng(FRAMES[0])
     state = _jax_state(jeng)
+    fstate = jfusion.state.get()
+    if fstate is None:
+        jfusion.join()  # raises the thread's error
     d1 = np.asarray(FRAMES[1], np.int32)
-    jobs = [("ops", dict(warp=warp, corr=corr, gram=gram)),
+    jobs = [("ops", dict(warp=warp, corr=corr, gram=gram, mono=mono)),
             ("frame", dict(params=PARAMS, state=state, depth=d1))]
     jobs += [(f"drive/{k}", dict(params=p, frames=FRAMES))
              for k, p in VARIANTS.items()]
+    jobs += [(f"fusion_frame/{k}", dict(params=convert.params(p),
+                                        state=fstate, depth=F_D1))
+             for k, p in (("t", JFPARAMS), ("se3", JFPARAMS_SE3))]
+    jobs += [(f"fusion_drive/{k}", dict(params=p, frames=FRAMES))
+             for k, p in FUSION_VARIANTS.items()]
+    jobs += [("fusion_drive/resumed", dict(
+        params=FUSION_VARIANTS["edges_se3"], frames=FRAMES,
+        resume_after=RESUME_AFTER, ckpt=str(ckpt)))]
     ranks = _Background(runtime.spawn, worker.run_jobs, 2, jobs, str(out),
                         "cpu", device="cpu")
 
-    # JAX's sharded functions on a 2-device sub-mesh, each compiled once
-    mesh = jmake_mesh(2)
+    # the sharded kernels' functions
     pts, nrm, wf = warp
     jwf = jfield.WarpField(*(jnp.asarray(a) for a in wf))
-    jax_out = {}
     jax_out["warp"] = [np.asarray(a) for a in jwarp_sharded(
         mesh, jwf, jnp.asarray(pts), jnp.asarray(nrm), blend="dqb", tq=128)]
     q, p, pm, qm, kw = corr
@@ -243,24 +363,19 @@ def _runs(tmp_path_factory):
     jax_out["corr"] = np.asarray(vals), np.asarray(exact)
     jax_out["gram"] = [np.asarray(a) for a in jgram_sharded(
         mesh, *(jnp.asarray(a) for a in gram[:4]), gram[4])]
-    c = jeng.canonical
-    with _jax_knn_through_pallas():
-        step = jengine_spmd.sharded_engine_frame(
-            mesh, jeng.dynfu_params, INTR, jeng.tsdf_config,
-            strict_parity=True, integrate_mode="gather", with_mult=True)
-        placed = jengine_spmd.place_engine_state(
-            mesh, jeng.vol, jeng.warpfield, c.vertices, c.normals, c.mask,
-            jnp.asarray(d1), jeng.poses[-1])
-        jax_out["frame"] = jax.tree_util.tree_map(
-            np.asarray, step(*placed, jeng.canonical_mult))
+    jax_out["mono"] = [np.asarray(a) for a in gram_pallas.monomial_grams_tpu(
+        *(jnp.asarray(a) for a in mono[:5]), mono[5], tq=256,
+        interpret=True)]
 
     # the port on one rank (no process group; not make_mesh, which would
-    # see the app's group): the Gram, the warp, the drives
+    # see the app's group): the Grams, the warp, the drives
     mesh1 = spmd.Mesh(0, 1, torch.device("cpu"), None)
     one = {"gram": shard_gram.data_normal_sharded(
         mesh1, *(torch.as_tensor(a) for a in gram[:4]), gram[4])}
     one["warp"] = warp_cuda.warp_fused(
         *(torch.as_tensor(np.array(a)) for a in (pts, nrm, *wf[:4])))[:2]
+    one["mono"] = shard_gram.monomial_grams_sharded(
+        mesh1, *(torch.as_tensor(a) for a in mono[:5]), mono[5])
     single = {}
     for k, prm in VARIANTS.items():
         eng = DynFusion(prm, device="cpu")
@@ -271,14 +386,31 @@ def _runs(tmp_path_factory):
                 rec[i] = (eng.warped_cloud(), eng.live, eng.mesh(),
                           eng.last_frame_stats)
         single[k] = (rec, eng.warpfield)
+    fusion = {k: _single_fusion(p) for k, p in FUSION_VARIANTS.items()}
+
+    # the parity frame with its k-NN through JAX's kernel, once the fusion
+    # frames are traced (they compile and run meanwhile)
+    if jfusion.state.get() is None:
+        jfusion.join()
+    c = jeng.canonical
+    with _jax_knn_through_pallas():
+        step = jengine_spmd.sharded_engine_frame(
+            mesh, jeng.dynfu_params, INTR, jeng.tsdf_config,
+            strict_parity=True, integrate_mode="gather", with_mult=True)
+        placed = jengine_spmd.place_engine_state(
+            mesh, jeng.vol, jeng.warpfield, c.vertices, c.normals, c.mask,
+            jnp.asarray(d1), jeng.poses[-1])
+        jax_out["frame"] = jax.tree_util.tree_map(
+            np.asarray, step(*placed, jeng.canonical_mult))
+    jfusion.join()
     ranks.join()
     app2.join()
     rank_out = {}
     for f in out.iterdir():
         name, r = f.stem.rsplit("_r", 1)
         rank_out[(name, int(r))] = dict(np.load(f))
-    return dict(jax=jax_out, one=one, single=single, ranks=rank_out,
-                corr=corr, app=app, lazy=lazy.wait())
+    return dict(jax=jax_out, one=one, single=single, fusion=fusion,
+                ranks=rank_out, corr=corr, app=app, lazy=lazy.wait())
 
 
 # --- the sharded kernels' functions ----------------------------------------
@@ -507,13 +639,137 @@ def test_dist_imports_lazily(runs):
 
 
 def test_driver_refuses_other_modes():
+    """Parity and fusion mode are accepted (a one-rank mesh here); fixed
+    mode, fusion with camera tracking and the rigid app raise."""
     from dynfu_tpu_torch.dist.driver import ShardedDynFusion
 
-    for mode in ("fusion", "fixed"):
-        with pytest.raises(NotImplementedError):
-            ShardedDynFusion(PARAMS, mode=mode, device="cpu")
+    for mode in ("parity", "fusion"):
+        assert ShardedDynFusion(PARAMS, mode=mode, device="cpu").mode == mode
+    with pytest.raises(NotImplementedError):
+        ShardedDynFusion(PARAMS, mode="fixed", device="cpu")
+    tracking = dataclasses.replace(PARAMS, fusion_camera_tracking=True)
+    with pytest.raises(NotImplementedError, match="camera"):
+        ShardedDynFusion(tracking, mode="fusion", device="cpu")
+    with pytest.raises(NotImplementedError, match="camera"):
+        run_dataset(UMBRELLA, mode="fusion", params=tracking, devices=2,
+                    device="cpu")
     with pytest.raises(ValueError, match="rigid"):
         run_dataset(UMBRELLA, rigid=True, devices=2, device="cpu")
+
+
+# --- fusion mode ------------------------------------------------------------
+
+
+def test_monomial_grams_sharded(runs):
+    """The monomial Grams' float64 partials on two ranks, added in rank
+    order and rounded once: bitwise the port's one-rank result on every
+    rank, and within 1e-5 of the largest entry of JAX's monomial_grams_tpu
+    (interpret mode, 3-pass bfloat16)."""
+    for r in (0, 1):
+        got = runs["ranks"][("ops", r)]
+        for name, want, jwant in zip(("mono_B", "mono_Bu", "mono_Bw"),
+                                     runs["one"]["mono"],
+                                     runs["jax"]["mono"]):
+            assert want.dtype == torch.float32
+            np.testing.assert_array_equal(got[name], want.numpy())
+            np.testing.assert_allclose(got[name], jwant, rtol=0,
+                                       atol=1e-5 * np.abs(jwant).max())
+
+
+@pytest.mark.parametrize("kind", ["t", "se3"])
+def test_sharded_fusion_frame_matches_jax(runs, kind):
+    """One fusion frame from JAX's frame-0 state (marching cubes), against
+    JAX's sharded_fusion_frame on the 2-device sub-mesh, translations and
+    SE(3) (tests/test_dist.py's fusion-frame tests and their tolerances;
+    JAX's k-NN through XLA's formulation, whose near ties do not arise
+    here): the canonical's vertex count and the captured band exact, the
+    DQs within 1e-5, the TSDF within 1e-3; the node mask and count exact;
+    every rank the same."""
+    j = runs["jax"][f"fusion_{kind}"]
+    got = runs["ranks"][(f"fusion_frame_{kind}", 0)]
+    assert int(got["n_verts"]) == int(j[5]) > 0
+    assert int(got["n_captured"]) == int(j[8].band.n_captured) > 0
+    assert int(got["n_band"]) == int(j[8].band.n_band)
+    np.testing.assert_allclose(got["dqs"], np.asarray(j[1].dqs), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["tsdf"].astype(np.float32),
+                               np.asarray(j[0].tsdf, np.float32), rtol=0,
+                               atol=1e-3)
+    np.testing.assert_array_equal(got["mask"], np.asarray(j[1].mask))
+    assert int(got["count"]) == int(j[1].count)
+    for key in ("dqs", "tsdf", "verts", "wv2"):  # every rank the same
+        np.testing.assert_array_equal(
+            runs["ranks"][(f"fusion_frame_{kind}", 1)][key], got[key])
+
+
+def _check_fusion_drive(got, rec, wf, frames):
+    for i in frames:
+        c, (wv, wm), fs, _ = rec[i]
+        np.testing.assert_array_equal(got[f"canonical{i}"],
+                                      c.vertices.numpy())
+        np.testing.assert_array_equal(got[f"normals{i}"], c.normals.numpy())
+        np.testing.assert_array_equal(got[f"mask{i}"], c.mask.numpy())
+        np.testing.assert_array_equal(got[f"warped{i}"], wv.numpy())
+        np.testing.assert_array_equal(got[f"warped_mask{i}"], wm.numpy())
+        for k, v in fs.band._asdict().items():
+            assert int(got[f"{k}{i}"]) == int(v), (i, k)
+        assert int(got[f"mc_dropped{i}"]) == int(fs.mc_dropped)
+        assert int(got[f"corr_dropped{i}"]) == int(fs.corr_dropped)
+    for k in ("pos", "dqs", "w", "mask"):
+        np.testing.assert_array_equal(got[k], getattr(wf, k).numpy())
+    assert int(got["count"]) == int(wf.count)
+
+
+@pytest.mark.parametrize("variant", list(FUSION_VARIANTS))
+def test_fusion_driver_equals_single_card(runs, variant):
+    """ShardedDynFusion(mode="fusion") on two ranks over four frames against
+    DynFusion(mode="fusion"), bitwise on both ranks: per frame the
+    re-extracted canonical (vertices, normals with their NaNs, mask), the
+    warped cloud and its mask, the band counters (n_band, n_captured,
+    n_updated) and the drop counts; the final node state. With the band
+    capacity the cut falls inside rank 1's block (rank 0's block holds
+    fewer band voxels than the capacity, both blocks more), after a
+    warm-up frame."""
+    rec, wf = runs["fusion"][variant]
+    for r in (0, 1):
+        _check_fusion_drive(runs["ranks"][(f"fusion_drive_{variant}", r)],
+                            rec, wf, rec)
+    bands = [(rec[i][3], int(rec[i][2].band.n_captured),
+              int(rec[i][2].band.n_band)) for i in rec]
+    if variant == "band_cap":
+        assert all(b0 < cap == BAND_CAP < n for b0, cap, n in bands)
+    else:
+        assert all(cap == n for _, cap, n in bands)
+        assert all(int(fs.mc_dropped) == 0 for _, _, fs, _ in rec.values())
+
+
+def test_fusion_checkpoint_resumed(runs):
+    """The 2-rank fusion driver (unique edges, SE(3)) saved after frame 1
+    (rank 0's gathered state) and restored by a new driver on both ranks:
+    the later frames and the final node state bitwise the uninterrupted
+    single card's."""
+    rec, wf = runs["fusion"]["edges_se3"]
+    later = [i for i in rec if i > RESUME_AFTER]
+    for r in (0, 1):
+        _check_fusion_drive(runs["ranks"][("fusion_drive_resumed", r)], rec,
+                            wf, later)
+
+
+def test_run_dataset_fusion_two_devices(runs):
+    """run_dataset(mode="fusion", devices=2) on three umbrella frames at
+    64^3 writes the bytes devices=1 writes (clouds, meshes) and the same
+    checkpoint arrays."""
+    a, b = runs["app"]["fusion1"], runs["app"]["fusion2"]
+    names = sorted(n for n in os.listdir(a) if n != "checkpoint.npz")
+    assert sorted(n for n in os.listdir(b) if n != "checkpoint.npz") == names
+    assert sum(n.endswith(".pcd") for n in names) == 3
+    for n in names:
+        assert filecmp.cmp(a / n, b / n, shallow=False), n
+    with np.load(a / "checkpoint.npz") as za, \
+            np.load(b / "checkpoint.npz") as zb:
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
 
 
 # --- the entry point ---------------------------------------------------------
@@ -576,6 +832,55 @@ def test_partial_gram_kernel_equals_model(dev, N, D):
     assert A64.dtype == torch.float64
     assert torch.equal(A64.cpu(), mA) and torch.equal(b64.cpu(), mb)
     assert torch.equal(A64.float(), A) and torch.equal(b64.float(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(5001, 100), (0, 17), (20000, 640)])
+def test_partial_monomial_kernel_equals_model(dev, N, D):
+    """The monomial Grams' float64 partial mode: the same bits over three
+    launches, the bits of the plain fixed-order model's partial, and
+    rounded once, the float32 mode's."""
+    from dynfu_tpu_torch.solver import gram_cuda
+
+    rng = np.random.default_rng(4)
+    idx = rng.integers(-1, D + 1, (N, 8)).astype(np.int32)
+    w = rng.random((N, 8), dtype=np.float32)
+    s2 = rng.random(N, dtype=np.float32)
+    s2[::3] = 0.0
+    y = rng.normal(0, 0.3, (N, 3)).astype(np.float32)
+    delta = rng.normal(0, 0.01, (N, 3)).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (idx, w, s2, y, delta)]
+    outs = [gram_cuda.monomial_grams(*args, D, partial=True)
+            for _ in range(3)]
+    f32 = gram_cuda.monomial_grams(*args, D)
+    model = gram_cuda.gram_fixed_order(
+        *(args[i].cpu() for i in (0, 1, 2, 4)), D,
+        gram_cuda.gram_warps(N, D, True), y=args[3].cpu(), partial=True)
+    assert outs[0][0].dtype == torch.float64
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(outs[0], model))
+    assert all(torch.equal(a.float(), b) for a, b in zip(outs[0], f32))
+
+
+@pytest.mark.cuda
+def test_fusion_driver_on_card_equals_single_card(dev, tmp_path):
+    """Two ranks sharing the card (gloo), fusion mode with unique edges and
+    SE(3) over four frames: the canonical, the warped cloud and the node
+    state bitwise the single card's."""
+    prm = FUSION_VARIANTS["edges_se3"]
+    runtime.spawn(worker.run_jobs, 2, [("fusion_drive/x", dict(
+        params=prm, frames=FRAMES))], str(tmp_path), "cuda")
+    got = dict(np.load(tmp_path / "fusion_drive_x_r0.npz"))
+    eng = DynFusion(prm, device=dev, mode="fusion")
+    for i, d in enumerate(FRAMES):
+        eng(d)
+        if i:
+            np.testing.assert_array_equal(
+                got[f"canonical{i}"], eng.canonical.vertices.cpu().numpy())
+            np.testing.assert_array_equal(
+                got[f"warped{i}"], eng.warped_cloud()[0].cpu().numpy())
+    np.testing.assert_array_equal(got["dqs"], eng.warpfield.dqs.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -1148,8 +1148,8 @@ def test_warp_dlb_kernel_equals_plain(dev, Q, D, n_masked):
 @pytest.mark.parametrize("N,K,D", [(5000, 8, 640), (999, 3, 50),
                                    (1, 8, 16)])
 def test_monomial_grams_kernel_equals_plain(dev, N, K, D):
-    """<= 1e-5 of max |.| (the kernel sums in float64, the plain version in
-    float32), with s2 = 0 rows, padded indices and K < 8."""
+    """<= 1e-5 of max |.| (both sum in float64, in other orders), with
+    s2 = 0 rows, padded indices and K < 8."""
     args = [torch.as_tensor(a, device=dev)
             for a in _gram_inputs(N + K, N, K, D)[:5]]
     got = gram_cuda.monomial_grams(*args, D)

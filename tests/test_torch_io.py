@@ -9,6 +9,7 @@ seeded numpy generators. The tests marked `cuda` repeat the resume and the
 render on the card and skip without one.
 """
 
+import dataclasses
 import json
 import struct
 import subprocess
@@ -543,13 +544,18 @@ def test_cli_without_card_exits_nonzero(tmp_path, monkeypatch, capsys):
 
 
 def test_run_dataset_devices_raises(tmp_path):
-    """devices > 1 runs the sharded parity engine (tests/test_torch_dist.py);
-    what it does not shard raises before any rank starts: fusion and fixed
-    mode, and the rigid pipeline."""
-    for mode in ("fusion", "fixed"):
-        with pytest.raises(NotImplementedError, match="parity"):
-            app.run_dataset(str(tmp_path), devices=2, mode=mode,
-                            device="cpu")
+    """devices > 1 runs the sharded parity or fusion engine
+    (tests/test_torch_dist.py); what it does not shard raises before any
+    rank starts: fixed mode, fusion mode with camera tracking, and the
+    rigid pipeline."""
+    with pytest.raises(NotImplementedError, match="parity"):
+        app.run_dataset(str(tmp_path), devices=2, mode="fixed",
+                        device="cpu")
+    tracking = dataclasses.replace(DynFuParams.default_params(),
+                                   fusion_camera_tracking=True)
+    with pytest.raises(NotImplementedError, match="camera"):
+        app.run_dataset(str(tmp_path), devices=2, mode="fusion",
+                        params=tracking, device="cpu")
     with pytest.raises(ValueError, match="rigid"):
         app.run_dataset(str(tmp_path), devices=2, rigid=True, device="cpu")
 
