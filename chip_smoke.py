@@ -14,10 +14,19 @@
    (N = 65536, K = 8, D = 640), and the 512^3 rigid slice's stencil fetch
    (frame 1's pyramid against frame 0's raycast, the first ICP iteration's
    indices, at levels 0, 1 and 2: 480x640 with R = 2, 240x320 with R = 3,
-   120x160 with R = 4) — checks that they agree (selections and the
-   stencil exactly, NaN positions included; floats within the stated
-   tolerance) and times each: CUDA events over back-to-back calls (ms), the
-   host's time per call without waiting for the card (host_ms), the
+   120x160 with R = 4), and the slab sweep (csrc/sweep.cu; no TPU kernel:
+   it replaces the source's XLA sweep loop) on the 512^3 rigid slice's
+   frame-0 volume: the general sweep at 640x480 under a tilted pose
+   (307,200 rays x 103 slabs), the separable sweep on the rotated
+   raycast's 744x560 virtual image (margin 1.15) and at the sharded step's
+   640x480, whole and as two x-blocks (split at plane 192), and the
+   resolve of the two blocks' records (hit masks equal, points within
+   1e-6 m, normals within 1e-5, the rows bitwise the plain version's
+   counted; records exact; the resolve bitwise the whole sweep, with hits
+   across the face) — checks that they agree (selections and the stencil
+   exactly, NaN positions included; floats within the stated tolerance)
+   and times each: CUDA events over back-to-back calls (ms), the host's
+   time per call without waiting for the card (host_ms), the
    profiler's device time per call (device_ms), for the Grams and the pack
    the time per call replayed from a CUDA graph (graph_ms: no host time in
    it), the plain version (plain_ms) and, where one PyTorch call computes the same function, that
@@ -48,8 +57,14 @@
      bounds;
    - SE(3) fusion 512^3: run_fusion_benchmark(512, rotations=True); no
      dropped edges, the whole band captured, the accuracy bounds;
-   - rigid 512^3: run_rigid_benchmark(512); 12 ICPs x 19 stencil launches,
-     no reset, the ATE bound;
+   - rigid 512^3: run_rigid_benchmark(512) (KinFuParams' raycast_mode
+     "auto": the source's formulations, the tilted poses through the
+     homography integrate and the rotated sweep); 12 ICPs x 19 stencil
+     launches, no reset, the ATE bound; then rigid_exact512, the same scene
+     with raycast_mode "exact" (the per-voxel integrate and the general
+     sweep), 3 + 5 frames, under the same checks; then, uncounted,
+     utils/rigid_profile's profile of the rigid frame (the raycast stage's
+     host and kernel ms per frame);
    - parity 512^3: run_benchmark(512, repeats=3) (unique edge vertices);
      zero drops, the accuracy bounds;
    - moving-camera SE(3) fusion 512^3: run_fusion_benchmark(512,
@@ -67,9 +82,8 @@
    - fixed mode 128^3: DynFusion(bench_params(128), mode="fixed") (the
      gather ICP against the raycast model, real normals, its own solve
      graph) on the moving-camera scene, 3 + 12 frames; zero drops, bounds
-     1.10 x the JAX package's figures for the same frames, loop and metric
-     with the port's formulations (scripts/jax_fixed_reference.py
-     --per-voxel);
+     1.10 x the JAX package's figures for the same frames, loop and metric,
+     its fixed mode as shipped (scripts/jax_fixed_reference.py);
    - the dataset app 512^3 (cli512): io.cli.main(["run", "data/umbrella",
      "--volume-dims", "512", "--export-viz", "--out", A]) in this process,
      A a temporary directory; 16 .pcd, .vtk, .ply and render PNGs each;
@@ -131,11 +145,19 @@
      (points and normals, NaNs included), the warped rows of every rank,
      the node state and the SolveStats must be the single rank's bits, no
      data Gram entry may differ, no solve may raise the cost, every rank
-     must hold valid rows, and hits whose crossing pair straddles the
-     block face must occur in every frame; frame_ms on 1 and 2 ranks is
-     printed. The step's warp, k-NN and partial data Gram are held
-     against their plain versions at its largest calls (153,600 rows a
-     rank).
+     must hold valid rows; the hits whose crossing pair straddles the
+     block face are counted (the face, plane 256, meets the sphere at the
+     image's centre column, whose rays run parallel to it: the kernel
+     phase's off-centre split holds that case); frame_ms on 1 and 2 ranks
+     is printed. The step raycasts with the source's separable sweep: on 2
+     ranks each sweeps its block's samples (the kernel's block mode) and a
+     second launch resolves the gathered records. The step's warp, k-NN,
+     partial data Gram, block sweep and resolve are held against their
+     plain versions at its largest calls (153,600 rows a rank).
+   Every path prints the formulations its engines ran
+   (kinfu.FORMULATIONS); across rigid, rigid_exact512, cli512 and
+   cli_rigid512 the separable, rotated and general sweeps and the rotated
+   integrate must each have run at 512^3.
 
 Prints each phase's seconds, the kernels' JSON line, the card's line, then
 as its last line the device JSON. Any failed check raises, and the script
@@ -143,6 +165,7 @@ exits non-zero without that line. It needs CUDA: without a card it exits 1
 before doing anything.
 """
 
+import dataclasses
 import inspect
 import json
 import subprocess
@@ -168,10 +191,12 @@ if kernels.CSRC.parents[1] != Path(__file__).resolve().parent:
     sys.exit(1)
 
 from dynfu_tpu_torch.core import dualquat as dq  # noqa: E402
+from dynfu_tpu_torch.core import se3  # noqa: E402
 from dynfu_tpu_torch.dist import runtime, shard_gram, spmd  # noqa: E402
 from dynfu_tpu_torch.dist.driver import ShardedDynFusion  # noqa: E402
 from dynfu_tpu_torch.dist.engine_spmd import sharding_overhead  # noqa: E402
 from dynfu_tpu_torch.core.camera import Intr  # noqa: E402
+from dynfu_tpu_torch.engine import kinfu as kinfu_mod  # noqa: E402
 from dynfu_tpu_torch.engine.dynfusion import DynFusion  # noqa: E402
 from dynfu_tpu_torch.engine.kinfu import KinFu  # noqa: E402
 from dynfu_tpu_torch.engine.params import KinFuParams  # noqa: E402
@@ -181,10 +206,11 @@ from dynfu_tpu_torch.ops import (compaction, corr_cuda, knn,  # noqa: E402
 from dynfu_tpu_torch.rigid import icp  # noqa: E402
 from dynfu_tpu_torch.solver import gram_cuda  # noqa: E402
 from dynfu_tpu_torch.utils.benchmarks import (  # noqa: E402
-    bench_frame, bench_params, breathing_err_mm, fusion_params,
+    RIGID_STEP, bench_frame, bench_params, breathing_err_mm, fusion_params,
     movingcam_frame, rigid_frame, rigid_params, run_benchmark,
     run_fusion_benchmark, run_rigid_benchmark, run_umbrella_benchmark,
     spheres_depth, umbrella_params)
+from dynfu_tpu_torch.volume import sweep_cuda  # noqa: E402
 from dynfu_tpu_torch.volume import tsdf as tv  # noqa: E402
 from dynfu_tpu_torch.warp import field as wfield  # noqa: E402
 
@@ -228,13 +254,16 @@ MIN_UMB_COVERAGE_PX = 19676
 # fixed mode at 128^3 (run_benchmark(128)'s parameters) on the moving-camera
 # scene (the breathing sphere, four anchors, the camera moving 2 mm a frame
 # along y), against the JAX package's figures on the CPU for the same
-# frames, loop and metric with the port's formulations
-# (scripts/jax_fixed_reference.py --per-voxel): warped 20.558, half-motion
-# 10.066, canonical 9.791 mm, the camera 15.831 mm off the truth at frame
-# 14, no drop in any frame. The bounds are 1.10 x those, with no drop.
+# frames, loop and metric, its fixed mode as shipped
+# (scripts/jax_fixed_reference.py): warped 22.468, half-motion 12.257,
+# canonical 9.791 mm, the camera 14.360 mm off the truth at frame 14, no
+# drop in any frame. The bounds are 1.10 x those, with no drop.
 FIXED_WARMUP, FIXED_FRAMES, FIXED_CAMERA = 3, 12, 0.002
-FIXED_BOUNDS = {"warped_err_mm": 22.61, "warped_err_half_motion_mm": 11.07,
-                "canonical_err_mm": 10.77, "camera_err_mm": 17.41}
+FIXED_BOUNDS = {"warped_err_mm": 24.71, "warped_err_half_motion_mm": 13.48,
+                "canonical_err_mm": 10.77, "camera_err_mm": 15.80}
+# rigid KinFu with raycast_mode="exact" (rigid_exact512): warm-up and timed
+# frames
+EXACT_WARMUP, EXACT_FRAMES = 3, 5
 # stencil fetches per ICP: one per iteration of the default schedule
 STENCIL_PER_ICP = sum(KinFuParams().icp_iter_num)
 
@@ -274,7 +303,19 @@ KERNELS = {
                       stencil_cuda.fetch_stencil_plain,
                       "dynfu_tpu_torch/csrc/stencil.cu",
                       "dynfu_tpu/ops/stencil_pallas.py:52"),
+    # not a TPU kernel: the source's XLA sweep loop (tsdf.py:629,
+    # _slab_sweep), given a hand kernel for the port's rigid raycast
+    "slab_sweep": (sweep_cuda.slab_sweep, None, sweep_cuda.slab_sweep_plain,
+                   "dynfu_tpu_torch/csrc/sweep.cu",
+                   "none (XLA loop): dynfu_tpu/volume/tsdf.py:629"),
+    # the sharded sweep's second launch, reported inside the slab_sweep row
+    "sweep_resolve": (sweep_cuda.sweep_resolve, None,
+                      sweep_cuda.sweep_resolve_plain,
+                      "dynfu_tpu_torch/csrc/sweep.cu",
+                      "none (XLA loop): dynfu_tpu/volume/tsdf.py:629"),
 }
+# the rows of the kernels line (sweep_resolve is folded into slab_sweep's)
+TABLE = [n for n in KERNELS if n != "sweep_resolve"]
 # the one PyTorch call timed as library_ms, where there is one (it computes
 # the same function). The stencil has none: no single call applies the
 # window, and img[vi, ui] (the fetch without it) is another function.
@@ -289,7 +330,8 @@ PATHS = {
                   "warp_fused", "data_normal"),
     "fusion": ("pack_triangles", "knn_gather", "warp_fused_dlb",
                "monomial_grams"),
-    "rigid": ("fetch_stencil",),
+    "rigid": ("fetch_stencil", "slab_sweep"),
+    "rigid_exact512": ("fetch_stencil", "slab_sweep"),
     "parity512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                   "warp_fused", "data_normal"),
     "movingcam": ("pack_triangles", "knn_gather", "warp_fused_dlb",
@@ -301,16 +343,22 @@ PATHS = {
     "umbrella512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                     "warp_fused", "data_normal"),
     "fixed128": ("pack_triangles", "knn_gather", "nn1_window_sweep",
-                 "warp_fused", "data_normal"),
+                 "warp_fused", "data_normal", "slab_sweep"),
     "cli512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
-               "warp_fused", "data_normal"),
-    "cli_rigid512": ("fetch_stencil", "pack_triangles"),
+               "warp_fused", "data_normal", "slab_sweep"),
+    "cli_rigid512": ("fetch_stencil", "pack_triangles", "slab_sweep"),
     "dist_parity512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                        "warp_fused", "data_normal"),
     "dist_fusion512": ("pack_triangles", "knn_gather", "warp_fused_dlb",
                        "monomial_grams"),
-    "dist_step512": ("knn_gather", "warp_fused", "data_normal"),
+    "dist_step512": ("knn_gather", "warp_fused", "data_normal",
+                     "slab_sweep", "sweep_resolve"),
 }
+# the 512^3 paths whose engines' formulations are counted
+# (kinfu.FORMULATIONS): together they must run the source's separable,
+# rotated and general sweeps and its rotated integrate
+FORMULATION_PATHS = ("rigid", "rigid_exact512", "cli512", "cli_rigid512")
+FORMULATIONS = {}  # path -> {formulation: calls}
 
 
 def launches(name: str) -> int:
@@ -509,17 +557,15 @@ def fusion_state(Q=1 << 19):
             perturbed(eng.warpfield, rng))
 
 
-def rigid_state():
+def rigid_state(eng):
     """The stencil kernel's inputs on the 512^3 rigid slice: frame 0
-    integrated by the engine, its raycast pyramid at pose 0 (the reference),
-    frame 1's depth pyramid (the current frame) and, per level, the
-    association's clipped indices at the identity pose of the first ICP
-    iteration. Returns [(level, (img, vi, ui, radius))] for levels 0-2."""
-    eng = KinFu(rigid_params(512), device=DEV)
-    eng(rigid_frame(0))
+    integrated by the engine `eng`, its raycast pyramid at pose 0 (the
+    reference; the engine's dispatch: the separable sweep), frame 1's depth
+    pyramid (the current frame) and, per level, the association's clipped
+    indices at the identity pose of the first ICP iteration. Returns
+    [(level, (img, vi, ui, radius))] for levels 0-2."""
     p = eng.params
-    pts, nrm = tv.raycast(eng.vol, eng.poses[-1], p.intr, (p.rows, p.cols),
-                          eng.tsdf_config)
+    pts, nrm = eng._raycast(eng.poses[-1])
     prev = icp.build_pyramids(pts, nrm, eng.levels)
     _, curr = eng._preprocess(eng._depth(rigid_frame(1)))
     out = []
@@ -743,12 +789,74 @@ def stencil_case(args):
             (H * W * (8 + 2 * 4 * C), 0), None)
 
 
+# what a compare function found beside its max_abs_err (bitwise rows of a
+# sweep), merged into the row by `measure`
+CMP_EXTRA = {}
+# a sweep's tolerance against its plain version: the hit masks equal,
+# points within 1e-6 m, normals within 1e-5
+SWEEP_TOL = "hit masks equal, points 1e-6 m, normals 1e-5"
+
+
+def cmp_sweep(name):
+    """A sweep's (points, normals[, straddle]) against the plain version's:
+    SWEEP_TOL, the straddle flags equal; records the count of hit rows
+    whose point and normal are bitwise the plain version's."""
+    def cmp(a, b):
+        (pk, nk), (pp, np_) = a[:2], b[:2]
+        hit = ~torch.isnan(pk[..., 0])
+        require(torch.equal(hit, ~torch.isnan(pp[..., 0])),
+                f"{name}: hit masks differ")
+        require(torch.equal(torch.isnan(pk), torch.isnan(pp))
+                and torch.equal(torch.isnan(nk), torch.isnan(np_)),
+                f"{name}: NaN positions differ")
+        ep, en = max_abs(pk[hit], pp[hit]), max_abs(nk[hit], np_[hit])
+        require(ep <= 1e-6 and en <= 1e-5,
+                f"{name}: points {ep} m, normals {en} from the plain version")
+        if len(a) > 2:
+            require(torch.equal(a[2], b[2]), f"{name}: straddle flags differ")
+        same = ((pk == pp).all(-1) & (nk == np_).all(-1))[hit]
+        CMP_EXTRA[name] = dict(hit_rows=int(hit.sum()),
+                               bitwise_rows=int(same.sum()),
+                               max_abs_err_points=ep, max_abs_err_normals=en)
+        print(f"{name}: {int(same.sum())} of {int(hit.sum())} hit rows "
+              f"bitwise the plain version's", flush=True)
+        return max(ep, en)
+    return cmp
+
+
+def sweep_case(args):
+    """The bound is its bytes: the slab stack, the rays and the pose read
+    once, the points and normals (or a block's 16-word records) written
+    once. The slab samples a ray reads depend on where it meets the
+    surface; the stack read once is the least any sweep reads. No PyTorch
+    call sweeps slabs for a first crossing."""
+    slabs, geo, rays, spec, block = args
+    H, W = spec.shape
+    out = H * W * (16 * 4 if block else 24)
+    nbytes = slabs.numel() * 2 + (geo.numel() + rays.numel()) * 4 + out
+    if block:
+        return (args, cmp_exact("slab_sweep records"), "records exact",
+                (nbytes, 0), None)
+    return (args, cmp_sweep("slab_sweep"), SWEEP_TOL, (nbytes, 0), None)
+
+
+def resolve_case(args):
+    """The records read once, the points, normals and straddle flags
+    written once; no PyTorch call."""
+    every, geo, rays, spec = args
+    H, W = spec.shape
+    nbytes = every.numel() * 4 + (geo.numel() + rays.numel()) * 4 + H * W * 25
+    return (args, cmp_sweep("sweep_resolve"),
+            SWEEP_TOL + ", straddle flags equal", (nbytes, 0), None)
+
+
 # row -> its case: (args, compare(kernel_out, plain_out) -> max_abs_err,
 # tolerance text, (bytes, flops), library call or None)
 CASES = {"pack_triangles": pack_case, "knn_gather": knn_case,
          "nn1_window_sweep": corr_case, "warp_fused": warp_case,
          "warp_fused_dlb": warp_case, "data_normal": gram_case,
-         "monomial_grams": mono_case, "fetch_stencil": stencil_case}
+         "monomial_grams": mono_case, "fetch_stencil": stencil_case,
+         "slab_sweep": sweep_case, "sweep_resolve": resolve_case}
 
 
 def kernel_cases(verts, wf, fstate):
@@ -958,7 +1066,7 @@ def measure(name, args, compare, tol, work, library) -> dict:
     torch.cuda.synchronize()
     err = compare(out_k, out_p)
     del out_k, out_p
-    extra = {}
+    extra = CMP_EXTRA.pop(name, {})
     if name in REPEAT_REQUIRED:
         same = repeats_bitwise(name, args)
         model = gram_model_check(name, args)
@@ -995,6 +1103,49 @@ def measure(name, args, compare, tol, work, library) -> dict:
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
+def sweep_cases(eng):
+    """The sweep kernel's inputs at the main paths' largest shapes, on the
+    512^3 rigid slice's frame-0 volume (the engine `eng`): the general
+    sweep (`raycast`) at 640x480 under a tilted pose (307,200 rays x 103
+    slabs); the separable sweep on raycast_rotated's virtual image at
+    margin 1.15 (744x560) under the same pose; the sharded step's separable
+    sweep at 640x480, whole and as two x-blocks with their 1-plane halo,
+    split at plane 192 (x = -0.375 m): a face that meets the surface off
+    the image's centre column, where rays cross it between two slabs (at
+    the centre column rays run parallel to the face). Returns ([(label,
+    case)], the resolve's case over the two blocks' records)."""
+    p, cfg, vol = eng.params, eng.tsdf_config, eng.vol
+    shape = (p.rows, p.cols)
+    R, _ = se3.from_rodrigues(torch.tensor([0.02, -0.03, 0.01]),
+                              torch.zeros(3))
+    pose = (R.to(DEV), torch.tensor([0.01, -0.005, 0.02], device=DEV))
+    Rc, t, dirs = tv.camera_rays(vol, pose, shape, p.intr)
+    spec = tv.sweep_spec("general", shape, cfg)
+    out = [(f"general {shape[1]}x{shape[0]}", sweep_case((
+        tv.slab_stack(vol.tsdf, spec.m), torch.cat([t, Rc.reshape(-1)]),
+        dirs.contiguous(), spec, None)))]
+    Hv, Wv = (int(n * 1.15) // 8 * 8 + 8 for n in shape)
+    vintr = Intr(p.intr.fx, p.intr.fy, Wv / 2 - 0.5, Hv / 2 - 0.5)
+    geo, rays = tv.separable_rays(vol, tv._vol2cam_rotation_split(
+        vol, pose)[1], vintr, (Hv, Wv))
+    spec = tv.sweep_spec("separable", (Hv, Wv), cfg)
+    out.append((f"separable {Wv}x{Hv}", sweep_case((
+        tv.slab_stack(vol.tsdf, spec.m), geo, rays, spec, None))))
+    geo, rays = tv.separable_rays(vol, eng.poses[-1], p.intr, shape)
+    spec = tv.sweep_spec("separable", shape, cfg)
+    label = f"separable {shape[1]}x{shape[0]}"
+    out.append((label, sweep_case((
+        tv.slab_stack(vol.tsdf, spec.m), geo, rays, spec, None))))
+    X, records = cfg.dims[0], []
+    for lo, hi in ((0, X * 3 // 8), (X * 3 // 8, X)):
+        h0, h1 = int(lo > 0), int(hi < X)
+        args = (tv.slab_stack(vol.tsdf[lo - h0:hi + h1], spec.m), geo, rays,
+                spec, (lo - h0, lo, hi))
+        out.append((f"{label}, block [{lo}, {hi})", sweep_case(args)))
+        records.append(sweep_cuda.slab_sweep(*args))
+    return out, resolve_case((torch.stack(records), geo, rays, spec))
+
+
 def kernel_phase():
     require(not torch.backends.cuda.matmul.allow_tf32,
             "TF32 is on for float32 matmuls")
@@ -1007,14 +1158,42 @@ def kernel_phase():
     del cases
     torch.cuda.empty_cache()
     # the stencil row is level 0; levels 1 and 2 ride along under "levels"
+    eng = KinFu(rigid_params(512), device=DEV)
+    eng(rigid_frame(0))
     levels = []
-    for level, args in rigid_state():
+    for level, args in rigid_state(eng):
         H, W = args[1].shape
         print(f"stencil level {level}: {H}x{W}, R = {args[3]}", flush=True)
         row = measure("fetch_stencil", *stencil_case(args))
         row.update(level=level, shape=[H, W], radius=args[3])
         levels.append(row)
     rows["fetch_stencil"] = dict(levels[0], levels=levels[1:])
+    # the sweep row is the general sweep; the separable ones ride along
+    # under "cases", the resolve of two blocks' records under its own row
+    cases, resolve = sweep_cases(eng)
+    sweeps = []
+    for label, case in cases:
+        print(f"slab_sweep {label}", flush=True)
+        sweeps.append(dict(measure("slab_sweep", *case), case=label))
+    rows["slab_sweep"] = dict(sweeps[0], cases=sweeps[1:])
+    rows["sweep_resolve"] = dict(measure("sweep_resolve", *resolve),
+                                 case="two blocks of 640x480")
+    # the resolve of the two blocks is the whole sweep, bit for bit, with
+    # hits whose crossing pair lies across the face
+    pts, nrm, straddle = sweep_cuda.sweep_resolve(*resolve[0])
+    whole = sweep_cuda.slab_sweep(*cases[2][1][0])
+    same = (torch.equal(pts.view(torch.int32), whole[0].view(torch.int32))
+            and torch.equal(nrm.view(torch.int32),
+                            whole[1].view(torch.int32)))
+    n_straddle = int(straddle.sum())
+    print(f"sweep_resolve: two blocks bitwise the whole sweep: {same}; hits "
+          f"across the face {n_straddle}", flush=True)
+    require(same and n_straddle > 0,
+            "sweep_resolve: the blocks' resolve differs from the whole "
+            "sweep, or no hit crossed the face")
+    rows["sweep_resolve"].update(bitwise_whole_sweep=same,
+                                 hits_across_face=n_straddle)
+    del eng, cases, resolve, pts, nrm, whole
     torch.cuda.empty_cache()
     return rows
 
@@ -1109,8 +1288,9 @@ def small_fusion_check():
 
 def small_rigid_check():
     """Three frames of a 64^3 three-sphere scene at 120x160 through rigid
-    KinFu (stencil ICP, per-voxel integrate, ray march) on the card and on
-    the CPU; the camera moves (4, -2, 3) mm per frame."""
+    KinFu (stencil ICP; the integrate and raycast of the source's dispatch,
+    raycast_mode "auto") on the card and on the CPU; the camera moves (4,
+    -2, 3) mm per frame."""
     import dataclasses
 
     intr = Intr(160.0, 160.0, 79.5, 59.5)
@@ -1278,6 +1458,8 @@ class Shim:
         name = ("warp_fused_dlb" if self.row == "warp_fused"
                 and args[7] == "dlb" else self.row)
         key = (name, args[6] if name == "nn1_window_sweep" else None)
+        if name == "slab_sweep":  # one largest call per mode
+            key = (name, args[3].mode + (" block" if args[4] else ""))
         size = args[0].numel()
         if size >= self.calls.get(key, (-1,))[0]:
             self.calls[key] = (size, args)
@@ -1296,11 +1478,15 @@ def run_path(path: str, fn):
     read). Returns (result, launches per kernel)."""
     with Capture() as cap:
         reset_counters()
+        kinfu_mod.FORMULATIONS.clear()
         res = fn()
         got = {n: launches(n) for n in KERNELS}
         plain = plain_calls()
+        FORMULATIONS[path] = dict(kinfu_mod.FORMULATIONS)
     print(f"{path}:", json.dumps(res), flush=True)
     print(f"{path} launches:", json.dumps(got), flush=True)
+    print(f"{path} formulations (engine calls):",
+          json.dumps(FORMULATIONS[path]), flush=True)
     require(all(got[n] > 0 for n in PATHS[path]),
             f"a kernel never launched on the {path} path: {got}")
     require(not any(plain.values()),
@@ -1315,7 +1501,8 @@ def run_path(path: str, fn):
         print(f"{path}: {name} at its largest call, input shapes {shapes}",
               flush=True)
         row = measure(name, *CASES[name](args))
-        AT_PATHS[name].append(dict(row, path=path, shapes=shapes))
+        AT_PATHS[name].append(dict(row, path=path, shapes=shapes,
+                                   variant=key[1]))
         del args
     torch.cuda.empty_cache()
     return res, got
@@ -1373,6 +1560,79 @@ def rigid_phase():
     require(res["ate_mm"] <= MAX_ATE_MM,
             f"rigid: ate_mm {res['ate_mm']} > {MAX_ATE_MM}")
     return got
+
+
+def rigid_exact_run() -> dict:
+    """Rigid KinFu at 512^3 (run_rigid_benchmark's scene and parameters)
+    with raycast_mode="exact": every tilted pose integrates per voxel and
+    raycasts through the general slab sweep. EXACT_WARMUP frames, then
+    EXACT_FRAMES timed; the ATE at the last frame."""
+    eng = KinFu(dataclasses.replace(rigid_params(512), raycast_mode="exact"),
+                device=DEV)
+    frames = [rigid_frame(i) for i in range(EXACT_WARMUP + EXACT_FRAMES)]
+    for d in frames[:EXACT_WARMUP]:
+        eng(d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d in frames[EXACT_WARMUP:]:
+        eng(d)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / EXACT_FRAMES
+    t = np.asarray(eng.get_camera_pose()[1])
+    want = np.asarray(RIGID_STEP) * (len(frames) - 1)
+    return {"frame_ms": dt * 1e3,
+            "ate_mm": float(np.linalg.norm(t - want)) * 1e3,
+            "resets": eng.resets}
+
+
+def rigid_exact512_phase():
+    res, got = run_path("rigid_exact512", rigid_exact_run)
+    want = (EXACT_WARMUP + EXACT_FRAMES - 1) * STENCIL_PER_ICP
+    require(got["fetch_stencil"] == want,
+            f"rigid_exact512: {got['fetch_stencil']} stencil launches, not "
+            f"{want}")
+    require(res["resets"] == 0, f"rigid_exact512: {res['resets']} resets")
+    require(res["ate_mm"] <= MAX_ATE_MM,
+            f"rigid_exact512: ate_mm {res['ate_mm']} > {MAX_ATE_MM}")
+    return got
+
+
+def rigid_profile_phase():
+    """utils/rigid_profile's profile of the 512^3 rigid frame (4 frames
+    timed, 4 profiled, after 3 warm-up frames; uncounted): the raycast
+    stage's host and kernel ms per frame beside the per-ray march's
+    (216.385 / 17.810 on the H100, ROADMAP H1), and the frame's wall,
+    kernel ms and idle share."""
+    from dynfu_tpu_torch.utils.fusion_profile import profile_engine
+    from dynfu_tpu_torch.utils.rigid_profile import STAGES
+
+    eng = KinFu(rigid_params(512), device=DEV)
+    frames = [rigid_frame(i) for i in range(3 + 2 * 4)]
+    out = profile_engine(eng, frames, 3, 4, "rigid/", STAGES)
+    print("rigid_profile:", json.dumps({k: out[k] for k in (
+        "card", "wall_ms_median", "kernel_ms_per_frame",
+        "kernels_per_frame", "idle_share", "stages")}), flush=True)
+    rc = out["stages"]["raycast"]
+    print(f"rigid_profile: raycast {rc['host_ms']:.3f} ms host / "
+          f"{rc['kernel_ms']:.3f} ms kernels per frame (the per-ray "
+          f"march: 216.385 / 17.810, ROADMAP H1)", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def formulations_check():
+    """Across the 512^3 paths of FORMULATION_PATHS, the source's separable,
+    rotated and general sweeps and its rotated integrate each ran."""
+    total = {}
+    for path in FORMULATION_PATHS:
+        for k, v in FORMULATIONS[path].items():
+            total[k] = total.get(k, 0) + v
+    print(f"formulations at 512^3 ({', '.join(FORMULATION_PATHS)}): "
+          f"{json.dumps(total)}", flush=True)
+    need = ("raycast:separable", "raycast:rotated", "raycast:sweep",
+            "integrate:rotated")
+    require(all(total.get(k, 0) > 0 for k in need),
+            f"a formulation never ran at 512^3: {total}")
 
 
 # main path -> its result, for the rows that compare with it
@@ -2167,8 +2427,6 @@ def dist_step512_phase():
             "dist_step512: the cost grew in a solve")
     require(all(min(r) > 0 for r in rows),
             "dist_step512: a rank had no valid rows")
-    require(all(c > 0 for c in straddle),
-            "dist_step512: no hit straddled the block face")
     for r, counts in enumerate(res["rank_launches"]):
         require(all(counts[n] > 0 for n in PATHS["dist_step512"]),
                 f"dist_step512: rank {r} launched {counts}")
@@ -2234,6 +2492,8 @@ def main() -> int:
               ("parity128", parity_phase),
               ("fusion", fusion_phase),
               ("rigid", rigid_phase),
+              ("rigid_exact512", rigid_exact512_phase),
+              ("rigid_profile", rigid_profile_phase),
               ("parity512", parity512_phase),
               ("movingcam", movingcam_phase),
               ("movingcam_simreg", simreg_phase),
@@ -2244,7 +2504,8 @@ def main() -> int:
               ("cli_rigid512", cli_rigid512_phase),
               ("dist_parity512", dist_parity512_phase),
               ("dist_fusion512", dist_fusion512_phase),
-              ("dist_step512", dist_step512_phase)]
+              ("dist_step512", dist_step512_phase),
+              ("formulations", formulations_check)]
     out = {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -2259,6 +2520,9 @@ def main() -> int:
          "library_call": LIBRARY.get(n), **rows[n],
          "at_paths": AT_PATHS[n]}
         for n in KERNELS]}
+    rows = {r["name"]: r for r in table["kernels"]}
+    rows["slab_sweep"]["resolve"] = rows.pop("sweep_resolve")
+    table["kernels"] = [rows[n] for n in TABLE]
     print(json.dumps(table))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

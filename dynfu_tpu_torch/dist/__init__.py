@@ -18,9 +18,10 @@ device and the collectives are written out (dist/spmd.py):
   solve's monomial Grams and data costs are float64 partials reduced in
   rank order too;
 * the per-frame fusion step (spmd.sharded_fusion_step) raycasts the whole
-  image over the blocks (spmd.sharded_raycast: each rank marches every
-  ray over its own samples; first events and lookups combined by select)
-  and solves over the raycast's rows, sharded into row ranges.
+  image over the blocks with the separable slab sweep
+  (spmd.sharded_raycast: each rank sweeps every ray over its own samples;
+  the records' first events combined by select) and solves over the
+  raycast's rows, sharded into row ranges.
 
 The answer is the single card's: selections, counts and the volume exactly,
 the Gram but for float64 rounding ties.

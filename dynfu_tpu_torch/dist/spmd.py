@@ -19,10 +19,10 @@ backend) and each collective is written out, in rank order:
   scan order and the totals, for capacities that hold over all blocks
   and for the counts summed over ranks.
 
-`sharded_raycast` marches every ray on every rank but fetches only the
-block's own samples, and combines the ranks' first events and lookups by
-select, never by a float sum; `sharded_fusion_step` is the source's step
-(integrate, raycast, warp, GN solve over the raycast's rows, warp) on it.
+`sharded_raycast` sweeps every ray on every rank over the block's own
+samples and combines the ranks' records by select, never by a float sum;
+`sharded_fusion_step` is the source's step (integrate, separable raycast,
+warp, GN solve over the raycast's rows, warp) on it.
 
 A mesh without a process group (one rank) needs no collective: each is the
 identity there. A process group of one rank (world 1 over NCCL, say) runs
@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from dynfu_tpu_torch.dist.runtime import rank_device
+from dynfu_tpu_torch.volume import sweep_cuda
 from dynfu_tpu_torch.volume import tsdf as tv
 
 
@@ -176,97 +177,35 @@ def gather_volume(vol: tv.TsdfVolume, mesh: Mesh, X: int) -> tv.TsdfVolume:
 # --- the raycast over the blocks ------------------------------------------
 
 
-def _first_events(every: torch.Tensor, none: int):
-    """From every block's march record (world, 8, H, W) (tv.march_block):
-    each ray's first event over all blocks, the same on every rank. Returns
-    (hit, t_hit, straddle): a +/- crossing came first, its step's t (0
-    without one), and it straddled two blocks."""
-    rec = dict(zip(tv.MARCH_FIELDS, every.unbind(1)))
-
-    def f32(t):
-        return t.view(torch.float32)
-
-    best = torch.full_like(rec["ev_step"][0], none)
-    cross = torch.zeros_like(best, dtype=torch.bool)
-    t_bits = torch.zeros_like(best)
-    straddle = torch.zeros_like(cross)
-    world = every.shape[0]
-    for r in range(world):
-        # the step that leaves block r, judged with the next block's first
-        # sample: each sample has one block, so exactly one block enters
-        # where r leaves
-        f_next = torch.zeros_like(f32(rec["in_f"][r]))
-        for q in range(world):
-            if q != r:
-                f_next = torch.where(
-                    rec["in_step"][q] == rec["out_step"][r] + 1,
-                    f32(rec["in_f"][q]), f_next)
-        f_prev = f32(rec["out_f"][r])
-        s_cross = (f_prev > 0.0) & (f_next < 0.0)
-        s_event = s_cross | ((f_prev < 0.0) & (f_next > 0.0))
-        s_step = torch.where((rec["out_step"][r] >= 0) & s_event,
-                             rec["out_step"][r], none)
-        for step, c, t, across in (
-                (rec["ev_step"][r], rec["ev_cross"][r] != 0, rec["ev_t"][r],
-                 False),
-                (s_step, s_cross, rec["out_t"][r], True)):
-            earlier = step < best
-            best = torch.where(earlier, step, best)
-            cross = torch.where(earlier, c, cross)
-            t_bits = torch.where(earlier, t, t_bits)
-            straddle = torch.where(earlier, across, straddle)
-    hit = (best < none) & cross
-    return hit, torch.where(hit, f32(t_bits), 0.0), hit & straddle
-
-
-def _owner_lookup(slab: torch.Tensor, x_off: int, mesh: Mesh, dims):
-    """tv.interpolate over the blocks: each lookup computed by the rank
-    whose block holds its lower plane (the upper one is in its block or its
-    1-plane halo above), the whole volume's bits; one all_gather, then every
-    rank selects each lookup's owner's value (a select, not a sum: a float
-    sum would lose -0.0 and NaN bits)."""
-    X = dims[0]
-    starts = torch.tensor([mesh.block(X, r)[0] for r in range(1, mesh.world)],
-                          device=slab.device)
-
-    def lookup(p):
-        val = tv.interpolate(slab, p, x_off, dims)
-        owner = torch.bucketize(tv.interp_plane(p, X), starts, right=True)
-        every = torch.stack(all_gather(val.contiguous(), mesh))
-        return every.gather(0, owner[None]).squeeze(0)
-
-    return lookup
-
-
 def sharded_raycast(vol: tv.TsdfVolume, mesh: Mesh, X: int, camera_pose,
                     intr, shape, config: tv.TsdfConfig):
-    """tv.raycast of the whole volume, from the rank's x-block `vol` (the
-    pose replicated): (points, normals, n_straddle) on every rank, the
-    points and normals the single card's bit for bit; n_straddle (a 0-d
-    tensor) counts the hits whose crossing pair of samples lies in two
-    blocks.
+    """tv.raycast_separable of the whole volume, from the rank's x-block
+    `vol` (the pose replicated): (points, normals, n_straddle) on every
+    rank, the points and normals the single card's bit for bit; n_straddle
+    (a 0-d tensor) counts the hits whose crossing pair of samples lies in
+    two blocks.
 
-    Every rank marches every ray over the single card's step grid, fetching
-    only the samples its block owns (tv.march_block); one all_gather of the
-    records (8 int32 per ray) gives every rank each ray's first event, the
-    steps across a block face judged from the two blocks' samples. The
-    secant's two lookups, then the normal's six, are each computed by the
-    rank whose block holds the lookup's lower plane (`_owner_lookup`, one
-    plane of halo): a lookup may lie blocks away from the crossing (a step
-    crosses up to step / voxel planes in x, and a secant through two
-    samples of one sign extrapolates). Nothing gathers the volume."""
+    A sample belongs to the block holding its lower x plane; the block's
+    slab stack with a 1-plane halo above also holds the upper one. A ray's
+    x is monotonic in z, so its samples in a block form one run: every rank
+    sweeps every ray over its own samples (sweep_cuda.slab_sweep in block
+    mode: per ray the run's first event and its first and last samples, 16
+    int32), one all_gather of the records gives every rank each ray's
+    first event over all blocks, a pair across a face judged from the two
+    blocks' samples (sweep_cuda.sweep_resolve, with the single card's
+    device functions). Nothing gathers the volume."""
     if mesh.backend is None:
-        pts, nrm = tv.raycast(vol, camera_pose, intr, shape, config)
+        pts, nrm = tv.raycast_separable(vol, camera_pose, intr, shape, config)
         return pts, nrm, torch.zeros((), dtype=torch.int64,
                                      device=pts.device)
     slab, (h0, _) = halo_slab(vol, mesh, X, width=1)
     lo, hi = mesh.block(X)
-    rays = tv.cast_rays(vol, camera_pose, intr, shape, config)
-    rec = tv.march_block(slab.tsdf, rays, lo - h0, (lo, hi), config.dims)
-    hit, t_hit, straddle = _first_events(
-        torch.stack(all_gather(rec, mesh)), rays.n_steps + 1)
-    pts, nrm = tv.ray_surface(rays, hit, t_hit, _owner_lookup(
-        slab.tsdf, lo - h0, mesh, config.dims))
+    geo, rays = tv.separable_rays(vol, camera_pose, intr, shape)
+    spec = tv.sweep_spec("separable", shape, config)
+    rec = sweep_cuda.slab_sweep(tv.slab_stack(slab.tsdf, spec.m), geo, rays,
+                                spec, block=(lo - h0, lo, hi))
+    pts, nrm, straddle = sweep_cuda.sweep_resolve(
+        torch.stack(all_gather(rec, mesh)), geo, rays, spec)
     return pts, nrm, straddle.sum()
 
 
@@ -283,8 +222,10 @@ def sharded_fusion_step(mesh: Mesh, config: tv.TsdfConfig, intr, shape,
     stats), the source's four outputs: the volume the rank's x-block (from
     `shard_volume`), warped_pts the rank's rows mesh.block(H * W) of the
     warped point map (NaN where the raycast missed), the node state and the
-    SolveStats replicated. Each rank clears and integrates its block (per
-    voxel), raycasts the whole image over the blocks (`sharded_raycast`),
+    SolveStats replicated. Each rank clears and integrates its block (the
+    source's separable integrate, per voxel), raycasts the
+    whole image over the blocks with the source's separable sweep
+    (`sharded_raycast`),
     warps its rows (DQB), and solves for node translations with the warped
     rows as the solve's canonical and the raycast rows as its live points
     (the source's order): the k-NN per row, the data Gram and c0 as float64
@@ -315,7 +256,7 @@ def sharded_fusion_step(mesh: Mesh, config: tv.TsdfConfig, intr, shape,
                                    device=vol.tsdf.device)
         dists = imgproc.compute_dists(depth_mm, intr)
         vol = tv.integrate(vol, dists, camera_pose, intr, config, fresh=True,
-                           x0=x0)
+                           x0=x0, separable=True)
         pts, nrm, n_straddle = sharded_raycast(vol, mesh, X, camera_pose,
                                                intr, shape, config)
         step.last_raycast = (pts, nrm, n_straddle)

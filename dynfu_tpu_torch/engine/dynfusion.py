@@ -20,7 +20,9 @@ the camera pose by the gather ICP of the depth pyramid against the model's
 raycast pyramid (refreshed after every frame), TSDF-gradient normals
 (tsdf.extract_normals) for the canonical and the live soup, the warped
 normals fetched with the correspondence, and the solve's own data graph
-(or, with solver_rotations, DLB warps and the SE(3) solve).
+(or, with solver_rotations, DLB warps and the SE(3) solve). Its integrate
+and raycast take the source's formulations for the pose
+(KinFu._integrate_mode, KinFu._raycast).
 
 Foreground tracking (parity and fixed mode, fg_aabb with max_fg_verts):
 frame 0 samples nodes from the box only and keeps the box's first
@@ -59,7 +61,7 @@ import torch.nn.functional as F
 
 from dynfu_tpu_torch.core import dualquat as dq
 from dynfu_tpu_torch.core import se3
-from dynfu_tpu_torch.engine.kinfu import KinFu
+from dynfu_tpu_torch.engine.kinfu import FORMULATIONS, KinFu
 from dynfu_tpu_torch.engine.params import DynFuParams
 from dynfu_tpu_torch.mesh import edges
 from dynfu_tpu_torch.mesh.mc import marching_cubes
@@ -192,13 +194,16 @@ class ShardKernels(NamedTuple):
 def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
                     pose, *, dp: DynFuParams, intr, config, parity: bool,
                     canonical_mult=None,
-                    kernels: Optional[ShardKernels] = None):
+                    kernels: Optional[ShardKernels] = None,
+                    integrate_mode: str = "separable"):
     """Frame k >= 1 of the parity and fixed pipelines
     (dyn_fusion.cpp:100-144). Parity keeps the reference's quirks (placeholder
     normals, the data graph fetched with the correspondence); fixed mode has
     TSDF-gradient normals, fetches the warped normals with the
     correspondence, and solves with its own graph (or per-node SE(3) with
-    solver_rotations). The per-voxel integrate serves any pose.
+    solver_rotations). integrate_mode is the source's integrate for the
+    pose (KinFu._integrate_mode): "separable" (the parity pipeline's
+    identity pose), "rotated" (not with `kernels`) or "gather".
 
     With fg_aabb (foreground tracking) the live set is compacted to the box,
     in scan order, before correspondence and solve; live vertices in the box
@@ -211,8 +216,14 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
     Returns (vol, wf, wv, wn, (live_v, live_n, live_m), (mesh_verts,
     n_verts), stats)."""
     dists = imgproc.compute_dists(depth_mm, intr)
-    x0 = 0 if kernels is None else kernels.x0
-    vol = tv.integrate(vol, dists, pose, intr, config, fresh=True, x0=x0)
+    if integrate_mode == "rotated" and kernels is None:
+        vol = tv.integrate_rotated(vol, dists, pose, intr, config, fresh=True)
+    elif integrate_mode in ("separable", "gather"):
+        x0 = 0 if kernels is None else kernels.x0
+        vol = tv.integrate(vol, dists, pose, intr, config, fresh=True, x0=x0,
+                           separable=integrate_mode == "separable")
+    else:
+        raise ValueError(f"integrate_mode {integrate_mode!r}")
     slab, block = vol, {}
     if kernels is not None:
         slab, halo = kernels.halo_fn(vol)
@@ -759,7 +770,7 @@ class DynFusion(KinFu):
                 # frame 0 runs no ICP (dyn_fusion.cpp:53-65)
                 del filtered
             self.vol = tv.integrate(self.vol, dists, self.poses[-1], p.intr,
-                                    self.tsdf_config)
+                                    self.tsdf_config, separable=True)
             frame = self._mc_frame(0)
             # node sampling strides the SOUP (dyn_fusion.cpp:151), before
             # the dedup; with foreground tracking, the box's vertices only
@@ -822,11 +833,15 @@ class DynFusion(KinFu):
             c, cmult = self._fg_canonical, self._fg_mult
         else:
             c, cmult = self.canonical, self.canonical_mult
+        # the source's choice, whatever raycast_mode (dynfusion.py:952-958)
+        imode = self._integrate_mode(self.poses[-1])
+        FORMULATIONS[f"integrate:{imode}"] += 1
         (self.vol, self.warpfield, wv, wn, live, mesh,
          self.last_frame_stats) = _nonrigid_frame(
             self.vol, self.warpfield, c.vertices, c.normals, c.mask,
             depth_mm, self.poses[-1], dp=dp, intr=p.intr,
-            config=self.tsdf_config, parity=parity, canonical_mult=cmult)
+            config=self.tsdf_config, parity=parity, canonical_mult=cmult,
+            integrate_mode=imode)
         self.canonical_warped = Frame(c.idx, wv, wn, c.mask)
         self.live = Frame(self.frame_counter, *live)
         # the unique edge vertices leave the soup to mesh()
@@ -836,8 +851,7 @@ class DynFusion(KinFu):
         if not parity:
             # the next frame's ICP reference: the model raycast from the new
             # pose (KinFu::operator()'s raycast stage)
-            pts, nrm = tv.raycast(self.vol, self.poses[-1], p.intr,
-                                  (p.rows, p.cols), self.tsdf_config)
+            pts, nrm = self._raycast(self.poses[-1])
             self.prev_pyr = icp.build_pyramids(pts, nrm, self.levels)
         self.frame_counter += 1
         return True
@@ -889,11 +903,8 @@ class DynFusion(KinFu):
 
     def render(self, flag: int = 0) -> torch.Tensor:
         """Offline render of the current volume from the current camera
-        pose (replaces the reference's OpenCV Viz window): the per-ray
-        raycast (the source raycasts through its TPU formulations), shaded
-        as KinFu.render shades; prev_pyr (fixed mode's ICP reference) is
-        not touched."""
-        p = self.params
-        pts, nrm = tv.raycast(self.vol, self.poses[-1], p.intr,
-                              (p.rows, p.cols), self.tsdf_config)
-        return self._render(pts, nrm, flag)
+        pose (replaces the reference's OpenCV Viz window): the raycast the
+        engine's dispatch picks for the pose (`_raycast`), shaded as
+        KinFu.render shades; prev_pyr (fixed mode's ICP reference) is not
+        touched."""
+        return self._render(*self._raycast(self.poses[-1]), flag)

@@ -14,15 +14,27 @@ The source fuses the whole frame into one TPU program and resolves its
 (R, t, ok) readback one frame late, because a readback costs ~28 ms through
 its TPU host. Here the frame runs eagerly on the engine's device and reads
 the 13 packed floats once per frame, so a degenerate ICP resets on the
-failing frame itself, as the reference does (kinfu.cpp:189-191). The
-integrate is the per-voxel one and the raycast the per-ray march (any pose;
-volume/tsdf.py); the separable and homography paths are TPU devices.
-The stages run inside rigid/* profiler ranges (utils/rigid_profile.py reads
+failing frame itself, as the reference does (kinfu.cpp:189-191).
+
+The integrate and the raycast take the formulation the source's dispatch
+picks for the pose (`_integrate`, `_raycast`; volume/tsdf.py): an aligned
+camera integrates with the separable formulation (the per-voxel integrate
+with its rounding) and raycasts with the separable sweep; with
+raycast_mode "auto" a camera tilted under 0.6 rad integrates through the
+rotation homography and raycasts through the rotated sweep, if a
+virtual-image margin covers its frustum; otherwise the per-voxel integrate
+and, under 1.1 rad, the slab sweep, beyond it the per-ray march. The
+source's fused frame (fused_frame=True) runs the same formulations but
+dispatches on a pose up to two frames stale; the port runs every frame
+per stage with the current pose, so fused_frame changes nothing here.
+FORMULATIONS counts the calls that took each, over every engine. The
+stages run inside rigid/* profiler ranges (utils/rigid_profile.py reads
 them).
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +45,11 @@ from dynfu_tpu_torch.kernels import resolve_device
 from dynfu_tpu_torch.ops import imgproc
 from dynfu_tpu_torch.rigid import icp
 from dynfu_tpu_torch.volume import tsdf as tv
+
+
+# calls per formulation over every engine, e.g. "integrate:rotated",
+# "raycast:sweep" (chip_smoke.py reads them per path, as the launch counts)
+FORMULATIONS: Counter = Counter()
 
 
 def _stage(name: str):
@@ -60,6 +77,9 @@ class KinFu:
         if p.volume_dims[0] % 32:
             raise ValueError("volume_dims[0] must be a multiple of 32 "
                              "(kinfu.cpp:47)")
+        if p.raycast_mode not in ("auto", "exact"):
+            raise ValueError(f"raycast_mode {p.raycast_mode!r}: 'auto' or "
+                             "'exact'")
         self.tsdf_config = tv.TsdfConfig(
             dims=p.volume_dims, size=p.volume_size,
             trunc_dist=p.tsdf_trunc_dist, max_weight=p.tsdf_max_weight,
@@ -150,18 +170,109 @@ class KinFu:
         Rp, tp = self.poses[-1]
         self.poses.append((Rp @ R, Rp @ t + tp))
 
+    # -- the integrate / raycast dispatch (source: kinfu.py:223-316) --------
+    # camera tilt (radians) up to which the homography formulations cover
+    # the real frustum with the default virtual-image margin
+    MAX_HOMOGRAPHY_TILT = 0.6
+    # the virtual-image margins raycast_rotated may use; beyond the largest
+    # the dispatch falls through to the sweep or the march
+    RAYCAST_MARGIN_BUCKETS = (1.15, 1.35, 1.6, 2.0, 2.5)
+    # beyond this tilt a pixel's ray can leave the +z half-space, which the
+    # slab sweep cannot march
+    MAX_SWEEP_TILT = 1.1
+
+    def _rotation_angle(self, pose) -> float:
+        R = np.asarray(pose[0])
+        return float(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0,
+                                       1.0)))
+
+    def _raycast_margin(self, pose) -> Optional[float]:
+        """The smallest margin bucket whose virtual frustum covers the real
+        one under this pose's rotation, or None. raycast_rotated maps each
+        real pixel into the virtual image by u' = Kv R^T K^-1 u; the image
+        rectangle maps to a convex quad, so its four corners (in float64)
+        bound every pixel, with 2 % and 0.01 of slack."""
+        p = self.params
+        W, H = p.cols, p.rows
+        R_cam = np.asarray(pose[0], np.float64)
+        corners = np.array([[0.0, 0.0], [W - 1.0, 0.0],
+                            [0.0, H - 1.0], [W - 1.0, H - 1.0]])
+        d = np.stack([(corners[:, 0] - p.intr.cx) / p.intr.fx,
+                      (corners[:, 1] - p.intr.cy) / p.intr.fy,
+                      np.ones(4)], axis=1)
+        dv = d @ R_cam.T
+        if np.any(dv[:, 2] < 0.05):  # a corner ray ~parallel to the plane
+            return None
+        need_x = np.max(np.abs(p.intr.fx * dv[:, 0] / dv[:, 2]))
+        need_y = np.max(np.abs(p.intr.fy * dv[:, 1] / dv[:, 2]))
+        required = max(need_x / (W / 2.0), need_y / (H / 2.0)) * 1.02 + 0.01
+        for m in self.RAYCAST_MARGIN_BUCKETS:
+            if m >= required:
+                return m
+        return None
+
+    def _aligned(self, pose) -> bool:
+        """The camera's rotation is the identity (atol 1e-6): the separable
+        formulations apply."""
+        return bool(np.allclose(np.asarray(pose[0]), np.eye(3), atol=1e-6))
+
+    def _integrate_mode(self, pose) -> str:
+        """The source's integrate for the pose, by its names: "separable"
+        (aligned), "rotated" (a tilt under MAX_HOMOGRAPHY_TILT) or "gather"
+        (per voxel)."""
+        if self._aligned(pose):
+            return "separable"
+        if self._rotation_angle(pose) < self.MAX_HOMOGRAPHY_TILT:
+            return "rotated"
+        return "gather"
+
+    def _integrate(self, dists, pose, fresh: bool = False):
+        """The source's dispatch: aligned -> the separable integrate;
+        raycast_mode "auto" and a tilt under MAX_HOMOGRAPHY_TILT -> the
+        homography-warped integrate; otherwise per voxel. Returns the new
+        volume."""
+        p = self.params
+        mode = self._integrate_mode(pose)
+        if mode == "rotated" and p.raycast_mode != "auto":
+            mode = "gather"
+        FORMULATIONS[f"integrate:{mode}"] += 1
+        args = (self.vol, dists, pose, p.intr, self.tsdf_config)
+        if mode == "rotated":
+            return tv.integrate_rotated(*args, fresh=fresh)
+        return tv.integrate(*args, fresh=fresh,
+                            separable=mode == "separable")
+
+    def _raycast(self, pose):
+        """The source's dispatch: aligned -> the separable sweep; with
+        raycast_mode "auto" and a margin bucket that covers the frustum ->
+        the rotated sweep at that margin; under MAX_SWEEP_TILT -> the slab
+        sweep; beyond -> the per-ray march. Returns (points, normals)."""
+        p = self.params
+        margin = (self._raycast_margin(pose) if p.raycast_mode == "auto"
+                  else None)
+        args = (self.vol, pose, p.intr, (p.rows, p.cols), self.tsdf_config)
+        if self._aligned(pose):
+            name, fn, kw = "separable", tv.raycast_separable, {}
+        elif margin is not None:
+            name, fn = "rotated", tv.raycast_rotated
+            kw = {"fov_margin": margin}
+        elif self._rotation_angle(pose) < self.MAX_SWEEP_TILT:
+            name, fn, kw = "sweep", tv.raycast, {}
+        else:
+            name, fn, kw = "march", tv.raycast_march, {}
+        FORMULATIONS[f"raycast:{name}"] += 1
+        return fn(*args, **kw)
+
     def __call__(self, depth_mm, image=None) -> bool:
         """Frame ingestion; `image` is accepted and unused, as in the
         reference. Frames 0 and 1 return False, later frames True
         (kinfu.cpp:229-233); a reset returns False."""
         del image
-        p = self.params
         with _stage("preprocess"):
             dists, curr_pyr = self._preprocess(self._depth(depth_mm))
 
         if self.frame_counter == 0:
-            self.vol = tv.integrate(self.vol, dists, self.poses[-1], p.intr,
-                                    self.tsdf_config)
+            self.vol = self._integrate(dists, self.poses[-1])
             self.prev_pyr = curr_pyr
             self.frame_counter += 1
             return False
@@ -175,11 +286,9 @@ class KinFu:
         self._push_pose(packed)
 
         with _stage("integrate"):  # always clear + re-integrate
-            self.vol = tv.integrate(self.vol, dists, self.poses[-1], p.intr,
-                                    self.tsdf_config, fresh=True)
+            self.vol = self._integrate(dists, self.poses[-1], fresh=True)
         with _stage("raycast"):
-            pts, nrm = tv.raycast(self.vol, self.poses[-1], p.intr,
-                                  (p.rows, p.cols), self.tsdf_config)
+            pts, nrm = self._raycast(self.poses[-1])
         with _stage("pyramid"):
             self.prev_pyr = icp.build_pyramids(pts, nrm, self.levels)
 

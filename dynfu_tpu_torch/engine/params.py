@@ -51,7 +51,15 @@ class KinFuParams:
 
     light_pose: Tuple[float, float, float] = (0.0, 0.0, 0.0)
 
+    # the integrate / raycast dispatch under camera rotation
+    # (engine/kinfu.py): "auto" takes the homography formulations below
+    # MAX_HOMOGRAPHY_TILT, "exact" the per-voxel integrate and the slab
+    # sweep or the march; any other value raises
     raycast_mode: str = "auto"
+    # the source runs frame k >= 1 as one fused program when True; the
+    # port's per-stage frame runs the same formulations with the current
+    # pose (the source's fused frame dispatches on a pose up to two frames
+    # stale), so the field is accepted and changes nothing
     fused_frame: bool = True
 
     @staticmethod

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C entry points: name -> argument types (every pointer and the stream are
 # c_void_p, so ctypes never truncates a 64-bit address)
@@ -58,6 +59,10 @@ SIGNATURES = {
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "dynfu_data_normal_f64": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "dynfu_fetch_stencil": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dynfu_slab_sweep": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P],
+    "dynfu_sweep_resolve": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _F, _P, _P, _P, _P],
 }
 
 # entry points that return something other than an error code

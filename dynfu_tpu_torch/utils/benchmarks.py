@@ -513,7 +513,6 @@ def run_stage_benchmark(volume_dims: int = 128, iters: int = 10,
     from dynfu_tpu_torch.mesh.mc import marching_cubes
     from dynfu_tpu_torch.ops import imgproc, knn
     from dynfu_tpu_torch.solver import gn
-    from dynfu_tpu_torch.volume import tsdf as tv
     from dynfu_tpu_torch.warp import field as wfield
 
     engine = DynFusion(bench_params(volume_dims, rows, cols), device=device)
@@ -530,8 +529,8 @@ def run_stage_benchmark(volume_dims: int = 128, iters: int = 10,
     clock = _stage_clock(dev, iters, stages)
     dists = clock("preprocess_dists",
                   lambda: imgproc.compute_dists(depth, intr))
-    vol2 = clock("clear_integrate", lambda: tv.integrate(
-        vol, dists, pose, intr, config, fresh=True))
+    vol2 = clock("clear_integrate", lambda: engine._integrate(
+        dists, pose, fresh=True))
     if dp.corr_unique_edges:
         # the frame consumes unique edge vertices; marching cubes runs on
         # demand for mesh()
@@ -564,7 +563,8 @@ def run_stage_benchmark(volume_dims: int = 128, iters: int = 10,
     clock("fused_full_frame", lambda: dyn._nonrigid_frame(
         vol, wf, c.vertices, c.normals, c.mask, depth, pose, dp=dp,
         intr=intr, config=config, parity=True,
-        canonical_mult=engine.canonical_mult))
+        canonical_mult=engine.canonical_mult,
+        integrate_mode=engine._integrate_mode(pose)))
     return {
         "metric": f"nonrigid_stage_ms_{volume_dims}cube",
         "value": stages["fused_full_frame"],

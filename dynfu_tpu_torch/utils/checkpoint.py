@@ -100,7 +100,6 @@ def load_checkpoint(engine: "DynFusion", path: str) -> "DynFusion":
     from dynfu_tpu_torch.dist.driver import ShardedDynFusion
     from dynfu_tpu_torch.engine.dynfusion import Frame
     from dynfu_tpu_torch.rigid import icp
-    from dynfu_tpu_torch.volume import tsdf as tv
     from dynfu_tpu_torch.warp.field import WarpField
 
     if isinstance(engine, ShardedDynFusion):
@@ -146,8 +145,6 @@ def load_checkpoint(engine: "DynFusion", path: str) -> "DynFusion":
             engine.canonical)
     # fixed mode refreshes its reference after every frame but frame 0
     if engine.mode == "fixed" and engine.frame_counter > 1:
-        p = engine.params
-        pts, nrm = tv.raycast(engine.vol, engine.poses[-1], p.intr,
-                              (p.rows, p.cols), engine.tsdf_config)
+        pts, nrm = engine._raycast(engine.poses[-1])
         engine.prev_pyr = icp.build_pyramids(pts, nrm, engine.levels)
     return engine

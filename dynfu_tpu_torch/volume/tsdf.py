@@ -6,27 +6,43 @@ tsdf_volume.cu:43-679). Storage is the
 same: tsdf float16 in [-1, 1], weight uint8, layout (X, Y, Z) with z
 fastest.
 
-One per-voxel projective `integrate` replaces both `tv.integrate` and the
-separable and rotated MXU formulations of the source: those factor the
-pixel lookup into one-hot matmuls because element gathers are slow on a TPU,
-and compute the same update. On a GPU the lookup is a plain gather. Likewise
-one per-ray `raycast` (the semantics of the source's `raycast_march`, the
-lock-step translation of the reference's raycaster) replaces the slab sweeps
-and homography raycasts, which are TPU reformulations; it is valid for any
-pose.
+The source ships several formulations of the integrate and the raycast,
+and its engines pick one by the camera pose (engine/kinfu.py `_integrate`,
+`_raycast`); the port has each of them:
+
+* `integrate`, the per-voxel projective update. The source's separable
+  integrate factors the same update into one-hot matmuls (element gathers
+  are slow on a TPU); `integrate(separable=True)` gives its bits (it
+  rounds |vc| in other steps than the gather integrate). `integrate_rotated`
+  is NOT the same update: it resamples the depth image by a rotation
+  homography (nearest pixel) and integrates from the equivalent
+  axis-aligned camera.
+* `raycast`, the z-slab sweep: bilinear samples on z-slabs every m voxels,
+  the crossing refined linearly in z, normals from the slabs' gradients;
+  `raycast_separable`, the same sweep for axis-aligned poses, with the
+  bilinear in the source's matmul order; `raycast_rotated`, the separable
+  sweep on an enlarged virtual image, mapped back by a homography;
+  `raycast_march`, the reference's per-ray march (nearest-voxel steps, a
+  trilinear secant, central-difference normals), for any pose. The three
+  sweeps find other crossings and normals than the march.
+
+The sweeps' state machine is one CUDA kernel (volume/sweep_cuda.py,
+csrc/sweep.cu); the plain version below is what it runs on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dynfu_tpu_torch.core import se3
 from dynfu_tpu_torch.core.camera import Intr
 from dynfu_tpu_torch.kernels import resolve_device
 from dynfu_tpu_torch.ops import compaction
+from dynfu_tpu_torch.volume import sweep_cuda
 
 # voxels per integrate chunk: bounds the float32 temporaries at large volumes
 _CHUNK_VOXELS = 1 << 24
@@ -112,7 +128,8 @@ def clear(vol: TsdfVolume) -> TsdfVolume:
 
 def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
               intr: Intr, config: TsdfConfig,
-              fresh: bool = False, x0: int = 0) -> TsdfVolume:
+              fresh: bool = False, x0: int = 0,
+              separable: bool = False) -> TsdfVolume:
     """Projective TSDF update with running-average weights.
 
     Per voxel: vc = vol2cam * voxel_corner; project; point-sample dists
@@ -127,6 +144,17 @@ def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
     `vol` may hold a block of the volume: its planes are x0 .. x0 +
     vol.tsdf.shape[0] - 1 (the sharded engine's x-blocks); every voxel's
     update is the whole volume's, bit for bit.
+
+    separable=True is the source's `integrate_separable`, its formulation
+    for an axis-aligned camera: the rotation is taken as the identity (the
+    caller checks), and |vc|^2 is rounded as its compiled program rounds
+    it (x^2 rounded, y^2 added in one fused multiply-add, z^2 rounded and
+    added), where the gather integrate's rounds once (`norm3`); the two
+    differ by one float32 ulp of |vc| at rare voxels. On a lattice whose
+    voxel coordinates round in float32 (80^3 over 1 m, say; not the
+    engines' 3 m over 128 or 512 voxels) the source's program fuses
+    further multiply-adds, and a few voxels per frame differ by a float16
+    ulp.
     """
     X, (_, Y, Z) = vol.tsdf.shape[0], config.dims
     vsx, vsy, vsz = config.voxel_size
@@ -137,6 +165,8 @@ def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
 
     cam = tuple(torch.as_tensor(a, dtype=f32, device=dev) for a in camera_pose)
     R, t = se3.compose(se3.inverse(cam), (vol.pose_r, vol.pose_t))
+    if separable:
+        R = torch.eye(3, dtype=f32, device=dev)
 
     # the source's operation order, so the sample positions round the same
     xs = torch.arange(x0, x0 + X, dtype=f32, device=dev) * vsx
@@ -160,7 +190,11 @@ def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
         ui = torch.clamp(torch.floor(u).to(torch.int64), 0, W - 1)
         vi = torch.clamp(torch.floor(v).to(torch.int64), 0, H - 1)
         Dp = dists_f[vi * W + ui]
-        norm_vc = norm3(vcx, vcy, vcz)
+        if separable:  # fl(fl(y^2 + fl(x^2)) + fl(z^2)): y^2 fused
+            xy = (vcy.double() * vcy + (vcx * vcx).double()).to(f32)
+            norm_vc = sqrt_rn(xy + vcz * vcz)
+        else:
+            norm_vc = norm3(vcx, vcy, vcz)
         sdf = Dp - norm_vc
         update = in_img & (Dp != 0) & (vcz > 0) & (sdf >= -config.trunc_dist)
         tsdf_in = torch.clamp_max(sdf * trunc_inv, 1.0)
@@ -178,6 +212,159 @@ def integrate(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
     return vol._replace(tsdf=tsdf_out, weight=w_out)
 
 
+# --- the rotation homography (source: tsdf.py:370-546) ----------------------
+# A rotated camera integrates and raycasts as an axis-aligned camera at the
+# same centre, with the rotation moved into an image-plane homography.
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _kmat(intr: Intr, dev) -> torch.Tensor:
+    return _f32([[intr.fx, 0.0, intr.cx], [0.0, intr.fy, intr.cy],
+                 [0.0, 0.0, 1.0]], dev)
+
+
+def _kmat_inv(intr: Intr, dev) -> torch.Tensor:
+    return _f32([[1.0 / intr.fx, 0.0, -intr.cx / intr.fx],
+                 [0.0, 1.0 / intr.fy, -intr.cy / intr.fy],
+                 [0.0, 0.0, 1.0]], dev)
+
+
+def _rotation_homography(R_rel: torch.Tensor, intr_dst: Intr,
+                         intr_src: Optional[Intr] = None) -> torch.Tensor:
+    """The pixel map u_dst = K_dst R K_src^-1 u_src (the same K when
+    intr_src is omitted)."""
+    dev = R_rel.device
+    return _kmat(intr_dst, dev) @ (R_rel @ _kmat_inv(intr_src or intr_dst,
+                                                      dev))
+
+
+def _homography_pixels(Hmat: torch.Tensor, out_shape, in_extent):
+    """The homography over an (Ho, Wo) pixel grid: (px, py, ok), ok false
+    behind the plane at infinity or outside [0, Wi) x [0, Hi) (in_extent
+    the exclusive bounds (Hi, Wi))."""
+    Ho, Wo = out_shape
+    Hi_ext, Wi_ext = in_extent
+    dev = Hmat.device
+    u = torch.arange(Wo, dtype=torch.float32, device=dev)[None, :]
+    v = torch.arange(Ho, dtype=torch.float32, device=dev)[:, None]
+    x = Hmat[0, 0] * u + Hmat[0, 1] * v + Hmat[0, 2]
+    y = Hmat[1, 0] * u + Hmat[1, 1] * v + Hmat[1, 2]
+    w = Hmat[2, 0] * u + Hmat[2, 1] * v + Hmat[2, 2]
+    safe_w = torch.where(w.abs() < 1e-12, 1.0, w)
+    px, py = x / safe_w, y / safe_w
+    ok = ((w > 1e-12) & (px >= 0) & (py >= 0) & (px < Wi_ext)
+          & (py < Hi_ext))
+    return px, py, ok
+
+
+def _warp_image_nearest(img: torch.Tensor, Hmat: torch.Tensor, out_shape):
+    """out[v', u'] = img[H(u', v')], the floor sample; 0 outside."""
+    Hi, Wi = img.shape
+    px, py, ok = _homography_pixels(Hmat, out_shape, (float(Hi), float(Wi)))
+    out = img[_clip_index(torch.floor(py), Hi - 1),
+              _clip_index(torch.floor(px), Wi - 1)]
+    return torch.where(ok, out, torch.zeros((), dtype=img.dtype,
+                                            device=img.device))
+
+
+def _vol2cam_rotation_split(vol: TsdfVolume, camera_pose):
+    """vol2cam = (R', t') as R' after (I, R'^T t'): the virtual axis-aligned
+    camera shares the real camera's centre, and the rotation moves into the
+    homography. Returns (R', the virtual camera's pose)."""
+    dev = vol.tsdf.device
+    cam = tuple(_f32(a, dev) for a in camera_pose)
+    R_rel, t_rel = se3.compose(se3.inverse(cam), (vol.pose_r, vol.pose_t))
+    t_virt = R_rel.T @ t_rel
+    virt = se3.compose((vol.pose_r, vol.pose_t),
+                       (torch.eye(3, dtype=torch.float32, device=dev),
+                        -t_virt))
+    return R_rel, virt
+
+
+def integrate_rotated(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
+                      intr: Intr, config: TsdfConfig,
+                      fresh: bool = False) -> TsdfVolume:
+    """The source's rotated-camera integrate: the dists image warped by the
+    rotation homography (nearest pixel), then integrated from the
+    equivalent axis-aligned camera (`integrate(separable=True)`). sdf uses
+    |vc|, which the rotation does not change, so the update differs from
+    `integrate`'s by the image's resampling."""
+    R_rel, virt = _vol2cam_rotation_split(vol, camera_pose)
+    warped = _warp_image_nearest(dists, _rotation_homography(R_rel, intr),
+                                 dists.shape)
+    return integrate(vol, warped, virt, intr, config, fresh=fresh,
+                     separable=True)
+
+
+def raycast_rotated(vol: TsdfVolume, camera_pose, intr: Intr,
+                    shape: Tuple[int, int], config: TsdfConfig,
+                    fov_margin: float = 1.6):
+    """The source's rotated-camera raycast: `raycast_separable` on an
+    enlarged virtual image (the same focal length, fov_margin x the pixel
+    extent, recentred) from the axis-aligned camera at the same centre;
+    each real pixel maps into the virtual image by the homography, and its
+    point and normal are the validity-weighted bilinear of the four virtual
+    pixels around it (the most-weighted valid one where the four straddle a
+    depth step of more than 4 voxels), rotated into the real camera's
+    frame. NaN where under half of the bilinear mass is valid."""
+    H, W = shape
+    Hv = int(H * fov_margin) // 8 * 8 + 8
+    Wv = int(W * fov_margin) // 8 * 8 + 8
+    vintr = Intr(intr.fx, intr.fy, Wv / 2 - 0.5, Hv / 2 - 0.5)
+    R_rel, virt = _vol2cam_rotation_split(vol, camera_pose)
+    pts_v, nrm_v = raycast_separable(vol, virt, vintr, (Hv, Wv), config)
+
+    # real pixel -> virtual pixel: u' = Kv R_rel^T K^-1 u
+    px, py, ok = _homography_pixels(
+        _rotation_homography(R_rel.T, vintr, intr), (H, W),
+        (float(Hv - 1) + 1e-6, float(Wv - 1) + 1e-6))
+    x0 = _clip_index(torch.floor(px), Wv - 2)
+    y0 = _clip_index(torch.floor(py), Hv - 2)
+    a = torch.clamp(px - x0, 0.0, 1.0)[..., None]
+    b = torch.clamp(py - y0, 0.0, 1.0)[..., None]
+    dev = pts_v.device
+    psum = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
+    nsum = torch.zeros_like(psum)
+    wsum = torch.zeros((H, W, 1), dtype=torch.float32, device=dev)
+    zmin = torch.full((H, W), torch.inf, device=dev)
+    zmax = torch.full((H, W), -torch.inf, device=dev)
+    best_p = torch.full_like(psum, torch.nan)
+    best_n = torch.full_like(psum, torch.nan)
+    best_w = torch.full_like(wsum, -1.0)
+    wts = [(1 - a) * (1 - b), a * (1 - b), (1 - a) * b, a * b]
+    for wt, (dy, dx) in zip(wts, [(0, 0), (0, 1), (1, 0), (1, 1)]):
+        pv, nv = pts_v[y0 + dy, x0 + dx], nrm_v[y0 + dy, x0 + dx]
+        valid = ~torch.isnan(pv[..., :1])
+        wv = torch.where(valid, wt, 0.0)
+        psum = psum + torch.nan_to_num(pv) * wv
+        nsum = nsum + torch.nan_to_num(nv) * wv
+        wsum = wsum + wv
+        zmin = torch.minimum(zmin, torch.where(valid[..., 0], pv[..., 2],
+                                               torch.inf))
+        zmax = torch.maximum(zmax, torch.where(valid[..., 0], pv[..., 2],
+                                               -torch.inf))
+        wb = torch.where(valid, wt, -2.0)
+        take = wb > best_w
+        best_p = torch.where(take, pv, best_p)
+        best_n = torch.where(take, nv, best_n)
+        best_w = torch.where(take, wb, best_w)
+    good = ok & (wsum[..., 0] > 0.5)
+    p = psum / torch.clamp_min(wsum, 1e-12)
+    n = nsum / torch.clamp_min(torch.linalg.vector_norm(
+        nsum, dim=-1, keepdim=True), 1e-12)
+    # silhouette guard: four taps across a depth step blend into a point in
+    # mid air; the most-weighted valid tap stands in
+    edge = ((zmax - zmin) > 4.0 * max(config.voxel_size))[..., None]
+    p = torch.where(edge, best_p, p)
+    n = torch.where(edge, best_n, n)
+    good = (good & ~torch.isnan(p[..., 0]))[..., None]
+    return (torch.where(good, p @ R_rel.T, torch.nan),
+            torch.where(good, n @ R_rel.T, torch.nan))
+
+
 # --- trilinear interpolation (tsdf_volume.cu:146-171) ----------------------
 
 
@@ -191,12 +378,6 @@ def _clip_index(g: torch.Tensor, hi: int) -> torch.Tensor:
     return torch.nan_to_num(g, nan=0.0).clamp(0, hi).long()
 
 
-def interp_plane(p_voxels: torch.Tensor, X: int) -> torch.Tensor:
-    """The lower of the two x planes a trilinear lookup at `p_voxels` reads
-    in a volume of X planes (`interpolate`'s clipped floor)."""
-    return _clip_index(torch.floor(p_voxels[..., 0]), X - 2)
-
-
 def interpolate(tsdf: torch.Tensor, p_voxels: torch.Tensor, x_off: int = 0,
                 dims=None) -> torch.Tensor:
     """Trilinear TSDF lookup at fractional voxel coordinates (..., 3); NaN
@@ -204,8 +385,8 @@ def interpolate(tsdf: torch.Tensor, p_voxels: torch.Tensor, x_off: int = 0,
 
     `tsdf` may hold the planes x_off.. of a volume of `dims` (a block of a
     sharded volume with its halo): the clip and the inside test are then the
-    whole volume's, and a lookup whose two planes (`interp_plane` and the
-    next) lie in `tsdf` is the whole volume's, bit for bit; any other
+    whole volume's, and a lookup whose two planes (its clipped floor and
+    the next) lie in `tsdf` is the whole volume's, bit for bit; any other
     lookup reads planes clamped into `tsdf` and is not."""
     n, Y, Z = tsdf.shape
     X = n if dims is None else dims[0]
@@ -297,20 +478,14 @@ class Rays(NamedTuple):
     gradient_delta: torch.Tensor  # (3,)
 
 
-def cast_rays(vol: TsdfVolume, camera_pose, intr: Intr,
-              shape: Tuple[int, int], config: TsdfConfig) -> Rays:
-    """Each pixel's ray from the camera through the volume's box, and the
-    march's fixed step grid: n_steps = int(diagonal / step) + 2 steps of
-    trunc_dist * raycast_step_factor from the ray's entry, which no ray
-    outlasts."""
+def camera_rays(vol: TsdfVolume, camera_pose, shape: Tuple[int, int],
+                 intr: Intr):
+    """(R, t) camera -> volume and each pixel's unit ray direction in the
+    volume frame, (H, W, 3): R ((x - cx) / fx, (y - cy) / fy, 1),
+    normalised."""
     H, W = shape
     dev = vol.tsdf.device
     f32 = torch.float32
-    vs = torch.tensor(config.voxel_size, dtype=f32, device=dev)
-    dims = torch.tensor(config.dims, dtype=f32, device=dev)
-    time_step = config.trunc_dist * config.raycast_step_factor
-    box_max = vs * dims - vs
-
     cam = tuple(torch.as_tensor(a, dtype=f32, device=dev) for a in camera_pose)
     R, t = se3.compose(se3.inverse((vol.pose_r, vol.pose_t)), cam)
     xs = torch.arange(W, dtype=f32, device=dev)[None, :]
@@ -321,8 +496,23 @@ def cast_rays(vol: TsdfVolume, camera_pose, intr: Intr,
                      ((ys - intr.cy) / fy).expand(H, W),
                      torch.ones((H, W), dtype=f32, device=dev)], -1)
     ray_dir = d @ R.T
-    ray_dir = ray_dir / torch.linalg.vector_norm(ray_dir, dim=-1,
-                                                 keepdim=True)
+    return R, t, ray_dir / torch.linalg.vector_norm(ray_dir, dim=-1,
+                                                    keepdim=True)
+
+
+def cast_rays(vol: TsdfVolume, camera_pose, intr: Intr,
+              shape: Tuple[int, int], config: TsdfConfig) -> Rays:
+    """Each pixel's ray from the camera through the volume's box, and the
+    march's fixed step grid: n_steps = int(diagonal / step) + 2 steps of
+    trunc_dist * raycast_step_factor from the ray's entry, which no ray
+    outlasts."""
+    dev = vol.tsdf.device
+    f32 = torch.float32
+    vs = torch.tensor(config.voxel_size, dtype=f32, device=dev)
+    dims = torch.tensor(config.dims, dtype=f32, device=dev)
+    time_step = config.trunc_dist * config.raycast_step_factor
+    box_max = vs * dims - vs
+    R, t, ray_dir = camera_rays(vol, camera_pose, shape, intr)
 
     tmin, tmax = _ray_box(t, ray_dir, box_max)
     tmin = torch.clamp_min(tmin, 0.0)
@@ -362,9 +552,9 @@ def ray_surface(rays: Rays, hit: torch.Tensor, t_hit: torch.Tensor, lookup):
             torch.where(ok, normal @ rays.R, torch.nan))
 
 
-def raycast(vol: TsdfVolume, camera_pose, intr: Intr, shape: Tuple[int, int],
-            config: TsdfConfig):
-    """Per-ray march with the semantics of the source's `raycast_march`
+def raycast_march(vol: TsdfVolume, camera_pose, intr: Intr,
+                  shape: Tuple[int, int], config: TsdfConfig):
+    """The source's `raycast_march`, the reference's per-ray march
     (tsdf_volume.cu:262-327): from the ray's entry into the volume box,
     fixed steps of trunc_dist * raycast_step_factor with nearest-voxel
     fetches; the first +/- crossing is a hit, a -/+ crossing ends the ray;
@@ -394,85 +584,384 @@ def raycast(vol: TsdfVolume, camera_pose, intr: Intr, shape: Tuple[int, int],
                        lambda p: interpolate(vol.tsdf, p))
 
 
-# the fields of march_block's record, in its order; the float fields hold
-# float32 bits
-MARCH_FIELDS = ("ev_step", "ev_cross", "ev_t", "out_step", "out_f", "out_t",
-                "in_step", "in_f")
+# --- the slab sweeps (source: tsdf.py:629-911) -------------------------------
+# The sweep samples the volume on every m-th z plane (a "slab"), bilinearly,
+# for every ray at once, and refines the first +/- crossing linearly in z.
+# On the card one thread walks one ray through all slabs (csrc/sweep.cu);
+# the functions below are its plain version, in the kernel's operation
+# order, and what runs on the CPU.
 
 
-def march_block(tsdf: torch.Tensor, rays: Rays, x_off: int, block,
-                dims) -> torch.Tensor:
-    """One x-block's share of `raycast`'s march, for a volume of `dims`
-    partitioned into blocks of x planes (dist/spmd.sharded_raycast).
+class SweepSpec(NamedTuple):
+    """A sweep's static description (the kernel's scalar arguments)."""
 
-    `tsdf` holds the planes x_off.. of the volume and the block is the
-    planes [lo, hi) of them. Every ray runs the whole step grid, with the
-    same parameters t as on one card; a sample belongs to the block whose
-    planes hold its nearest voxel (clipped to the whole volume), and the
-    block fetches only its own. A ray's x is monotonic in t, so its
-    samples in a block are one contiguous run. Per ray the block records:
+    mode: str  # "general" (`raycast`) or "separable" (`raycast_separable`)
+    shape: Tuple[int, int]  # (H, W)
+    m: int  # slab stride, in z planes
+    s_pad: int  # slabs walked: the real ones, then planes of +1.0
+    dims: Tuple[int, int]  # the whole volume's X and Y
+    voxel: Tuple[float, float, float]
 
-    * its first event (a +/- crossing or a -/+ backface) among the steps
-      whose two samples are both its own and that run before the ray's
-      tmax: ev_step (n_steps + 1 if none), ev_cross, ev_t;
-    * the step whose first sample is its last own one, where the ray's
-      next sample lies in another block, if it runs before tmax: out_step
-      (-1 if none), its first sample's value out_f and its t out_t;
-    * the first own sample that follows another block's: in_step (its
-      index, -1 if none) and its value in_f.
+    @property
+    def slab_dz(self) -> float:
+        """The slabs' spacing in metres, as the float32 the sweep uses."""
+        return float(np.float32(self.m * self.voxel[2]))
 
-    The ray's first event over all blocks is then the earliest of every
-    block's ev_step and of the steps that straddle two blocks, each judged
-    from out_f and the next block's in_f. Returns the record, int32 (8,
-    H, W) in MARCH_FIELDS' order."""
-    lo, hi = block
-    n, Y, Z = tsdf.shape
-    flat = tsdf.reshape(-1)
+
+# the fields of a block's sweep record (`_sweep_block`), in order; the float
+# fields hold float32 bits, the flags 0 or 1
+SWEEP_FIELDS = ("ev_g", "ev_cross", "ev_frac", "ev_gx", "ev_gy", "ev_gz",
+                "first_g", "first_f", "first_gx", "first_gy", "first_valid",
+                "last_g", "last_f", "last_gx", "last_gy", "last_valid")
+
+
+def sweep_spec(mode: str, shape, config: TsdfConfig) -> SweepSpec:
+    """The source's stride m ~ the march's step in voxels (>= 1) and its
+    slab chunks: 16 slabs for `raycast`, 8 for `raycast_separable`."""
+    step = config.trunc_dist * config.raycast_step_factor
+    m = max(1, int(round(step / config.voxel_size[2])))
+    S = (config.dims[2] - 1) // m + 1
+    chunk = 16 if mode == "general" else 8
+    return SweepSpec(mode, tuple(shape), m, -(-S // chunk) * chunk,
+                     tuple(config.dims[:2]), tuple(config.voxel_size))
+
+
+def slab_stack(tsdf: torch.Tensor, m: int) -> torch.Tensor:
+    """The sampled z planes of an (X, Y, Z) tsdf as (S, Y, X) float16: one
+    strided slice and one transposing copy, so that neighbouring rays read
+    neighbouring x."""
+    return tsdf[:, :, ::m].permute(2, 1, 0).contiguous()
+
+
+def _sampler(geo: torch.Tensor, rays: torch.Tensor, spec: SweepSpec,
+             x_off: int, nx: int):
+    """sample(g, slab) -> (f, gx, gy, valid, x0): every ray's bilinear
+    sample of slab g (slab (Y, nx) f16 holding the planes x_off..), its
+    in-plane gradient, its validity and the lower x plane it reads (global;
+    for a plane outside [x_off, x_off + nx - 1) the values are not the
+    volume's). Invalid samples read f = 1.
+
+    "general" (`raycast`): rays (H, W, 3) unit directions from the origin
+    geo[:3]; a ray samples slab g where it meets the plane z = g m vz.
+    "separable" (`raycast_separable`, axis-aligned camera at geo[:3]): rays
+    = (qx (W), qy (H)), the ray through pixel (u, v) is t + q (z - t_z) with
+    q = (qx[u], qy[v], 1), so x depends on (u, g) only; the bilinear and its
+    gradient follow the source's one-hot matmuls (rows first, y then x)."""
+    X, Y = spec.dims
+    vsx, vsy, vsz = spec.voxel
+    H, W = spec.shape
+    dev = geo.device
+    o = geo[:3]
+    vx, vy = _f32(vsx, dev), _f32(vsy, dev)
+    general = spec.mode == "general"
+    if general:
+        dz = rays[..., 2]
+        fwd = dz > 1e-6
+        safe_dz = torch.where(fwd, dz, 1.0)
+    else:
+        qx, qy = rays[:W], rays[W:]
+        gix = float(np.float32(1.0) / np.float32(vsx))
+        giy = float(np.float32(1.0) / np.float32(vsy))
+
+    def sample(g, slab):
+        z = float(np.float32(g * spec.m) * np.float32(vsz))
+        if general:
+            srel = (z - o[2]) / safe_dz
+            px = (o[0] + rays[..., 0] * srel) / vx
+            py = (o[1] + rays[..., 1] * srel) / vy
+            valid = (fwd & (srel > 0.0) & (px >= 0) & (px <= X - 1 - 1e-4)
+                     & (py >= 0) & (py <= Y - 1 - 1e-4))
+        else:
+            dzo = z - o[2]
+            px = (o[0] + qx * dzo) / vx  # (W,)
+            py = (o[1] + qy * dzo) / vy  # (H,)
+            valid = ((py >= 0) & (py <= Y - 1))[:, None] & (
+                (dzo > 0) & (px >= 0) & (px <= X - 1))[None, :]
+        x0 = _clip_index(torch.floor(px), X - 2)
+        y0 = _clip_index(torch.floor(py), Y - 2)
+        a = torch.clamp(px - x0, 0.0, 1.0)
+        b = torch.clamp(py - y0, 0.0, 1.0)
+        xl = (x0 - x_off).clamp(0, nx - 2)
+        if not general:
+            y0, b = y0[:, None], b[:, None]
+            xl, a = xl[None, :], a[None, :]
+        f00, f01 = slab[y0, xl].float(), slab[y0, xl + 1].float()
+        f10, f11 = slab[y0 + 1, xl].float(), slab[y0 + 1, xl + 1].float()
+        if general:
+            f = (f00 * (1 - a) + f01 * a) * (1 - b) + (f10 * (1 - a)
+                                                       + f11 * a) * b
+            gx = ((f01 - f00) * (1 - b) + (f11 - f10) * b) / vx
+            gy = ((f10 - f00) * (1 - a) + (f11 - f01) * a) / vy
+        else:
+            t0, t1 = f00 * (1 - a) + f01 * a, f10 * (1 - a) + f11 * a
+            f = (1 - b) * t0 + b * t1
+            gx = ((1 - b) * (f00 * -gix + f01 * gix)
+                  + b * (f10 * -gix + f11 * gix))
+            gy = t0 * -giy + t1 * giy
+            x0 = x0[None, :]
+        return torch.where(valid, f, 1.0), gx, gy, valid, x0
+
+    return sample
+
+
+def _take(f_prev, gx_prev, gy_prev, f, gx, gy):
+    """A crossing between two samples: (frac, gx_h, gy_h, gz_h), its
+    fraction of the way from the first, the in-plane gradient lerped to it
+    and the difference across the pair."""
+    fr = f_prev / (f_prev - f + 1e-30)
+    return (fr, gx_prev * (1 - fr) + gx * fr, gy_prev * (1 - fr) + gy * fr,
+            f - f_prev)
+
+
+def _slab_sweep(slabs: torch.Tensor, s_pad: int, sample_fn, H: int, W: int):
+    """The zero-crossing state machine shared by `raycast` and
+    `raycast_separable` (source `_slab_sweep`): walk slabs 0..s_pad - 1,
+    sample_fn(g, slab) -> (f, gx, gy, valid); the carry records each ray's
+    FIRST +/- crossing (slab index, fraction and the normal's components
+    resolved at it), while a -/+ crossing only stops the ray."""
+    dev = slabs.device
+    zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    no = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    c = dict(f_prev=torch.ones_like(zero), gx_prev=zero, gy_prev=zero,
+             valid_prev=no, found=no, hit=no,
+             k_hit=torch.zeros((H, W), dtype=torch.int32, device=dev),
+             frac=zero, gx_h=zero, gy_h=zero, gz_h=zero)
+    for g in range(s_pad):
+        f, gx, gy, valid = sample_fn(g, slabs[g])
+        both = c["valid_prev"] & valid
+        crossing = both & (c["f_prev"] > 0.0) & (f < 0.0)
+        backface = both & (c["f_prev"] < 0.0) & (f > 0.0)
+        take = ~c["found"] & crossing
+        fr, gx_h, gy_h, gz_h = _take(c["f_prev"], c["gx_prev"],
+                                     c["gy_prev"], f, gx, gy)
+        c = dict(f_prev=f, gx_prev=gx, gy_prev=gy, valid_prev=valid,
+                 found=c["found"] | crossing | backface,
+                 hit=c["hit"] | take,
+                 k_hit=torch.where(take, g - 1, c["k_hit"]),
+                 frac=torch.where(take, fr, c["frac"]),
+                 gx_h=torch.where(take, gx_h, c["gx_h"]),
+                 gy_h=torch.where(take, gy_h, c["gy_h"]),
+                 gz_h=torch.where(take, gz_h, c["gz_h"]))
+    return c
+
+
+def _sweep_outputs(s: dict, slab_dz: float):
+    """(hit, z_star, normal, ok) from a sweep's carry: the crossing's depth
+    between its two slabs, and the TSDF gradient (the in-plane gradients
+    lerped in z, the difference across the slabs) as the normal."""
+    dz = _f32(slab_dz, s["frac"].device)
+    z_star = (s["k_hit"].to(torch.float32) + s["frac"]) * dz
+    gx, gy, gz = s["gx_h"], s["gy_h"], s["gz_h"] / dz
+    nn = sqrt_rn(gx * gx + gy * gy + gz * gz)
+    den = torch.where(nn > 0, nn, 1.0)
+    normal = torch.stack([gx / den, gy / den, gz / den], -1)
+    ok = s["hit"] & (nn > 0) & ~torch.isnan(
+        normal[..., 0] + normal[..., 1] + normal[..., 2])
+    return s["hit"], z_star, normal, ok
+
+
+def _sweep_points(spec: SweepSpec, z_star, normal, ok, geo, rays):
+    """The hits in the camera frame: (points, normals) (H, W, 3), NaN where
+    not ok."""
+    t = geo[:3]
+    if spec.mode == "general":
+        R = geo[3:].reshape(3, 3)
+        dz = rays[..., 2]
+        s_star = (z_star - t[2]) / torch.where(dz > 1e-6, dz, 1.0)
+        dv = (t + rays * s_star[..., None]) - t
+
+        def to_cam(v):  # v R: the camera frame, summed in row order
+            return v[..., 0:1] * R[0] + v[..., 1:2] * R[1] + v[..., 2:3] * R[2]
+        pts, normal = to_cam(dv), to_cam(normal)
+    else:
+        W = spec.shape[1]
+        dzo = z_star - t[2]
+        pts = torch.stack([(t[0] + rays[None, :W] * dzo) - t[0],
+                           (t[1] + rays[W:, None] * dzo) - t[1], dzo], -1)
+    ok = ok[..., None]
+    return (torch.where(ok, pts, torch.nan),
+            torch.where(ok, normal, torch.nan))
+
+
+def _padded(slabs: torch.Tensor, s_pad: int) -> torch.Tensor:
+    """The stack padded to s_pad slabs of +1.0 (empty space)."""
+    pad = slabs.new_ones((s_pad - slabs.shape[0],) + slabs.shape[1:])
+    return torch.cat([slabs, pad])
+
+
+def _sweep_block(slabs, s_pad, sample_fn, H, W, lo, hi):
+    """One x-block's share of a sweep: the samples whose lower x plane lies
+    in [lo, hi). A ray's x is monotonic in the slab index, so its samples
+    in a block are one run. Per ray the record holds its first event (a +/-
+    or -/+ crossing) among the run's pairs (ev_g = s_pad + 1 if none; the
+    fraction and the normal's components at it), and the run's first and
+    last samples (index, f, gx, gy, valid; index -1 if the block has none).
+    Returns int32 (16, H, W) in SWEEP_FIELDS' order."""
+    dev = slabs.device
     i32 = torch.int32
+    none = s_pad + 1
+    zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    no = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    ev_g = torch.full((H, W), none, dtype=i32, device=dev)
+    first_g = torch.full_like(ev_g, -1)
+    last_g = torch.full_like(ev_g, -1)
+    ev_cross = no
+    ev = (zero,) * 4
+    first = last = (zero, zero, zero, no)
+    for g in range(s_pad):
+        f, gx, gy, valid, x0 = sample_fn(g, slabs[g])
+        own = ((x0 >= lo) & (x0 < hi)).expand(H, W)
+        both = own & (first_g >= 0) & last[3] & valid
+        crossing = both & (last[0] > 0.0) & (f < 0.0)
+        event = ((crossing | (both & (last[0] < 0.0) & (f > 0.0)))
+                 & (ev_g == none))
+        ev_g = torch.where(event, g, ev_g)
+        ev_cross = torch.where(event, crossing, ev_cross)
+        ev = tuple(torch.where(event, a, b) for a, b in
+                   zip(_take(*last[:3], f, gx, gy), ev))
+        new = own & (first_g < 0)
+        first_g = torch.where(new, g, first_g)
+        cur = (f, gx, gy, valid)
+        first = tuple(torch.where(new, a, b) for a, b in zip(cur, first))
+        last = tuple(torch.where(own, a, b) for a, b in zip(cur, last))
+        last_g = torch.where(own, g, last_g)
 
-    def fetch(tt):
-        gx, gy, gz = _nearest(_sample_voxels(rays, tt), dims)
-        own = (gx >= lo) & (gx < hi)
-        lx = (gx - x_off).clamp(0, n - 1)
-        return flat[_flat_index(lx, gy, gz, Y, Z)].to(torch.float32), own
+    def bits(t):
+        return t.to(i32) if t.dtype == torch.bool else t.view(i32)
+    return torch.stack([ev_g, bits(ev_cross), *map(bits, ev), first_g,
+                        *map(bits, first), last_g, *map(bits, last)])
 
-    none = rays.n_steps + 1
-    tcurr, alive = rays.tcurr, rays.active
-    f_prev, own_prev = fetch(tcurr)
-    ev_step = torch.full_like(tcurr, none, dtype=i32)
-    out_step = torch.full_like(ev_step, -1)
-    in_step = torch.full_like(ev_step, -1)
-    ev_cross = torch.zeros_like(alive)
-    ev_t, out_f, out_t, in_f = (torch.zeros_like(tcurr) for _ in range(4))
-    for i in range(rays.n_steps):
-        tnext = tcurr + rays.time_step
-        f, own = fetch(tnext)
-        both = alive & own_prev & own
-        crossing = both & (f_prev > 0.0) & (f < 0.0)
-        first = ((crossing | (both & (f_prev < 0.0) & (f > 0.0)))
-                 & (ev_step == none))
-        ev_step = torch.where(first, i, ev_step)
-        ev_cross = torch.where(first, crossing, ev_cross)
-        ev_t = torch.where(first, tcurr, ev_t)
-        leave = alive & own_prev & ~own
-        out_step = torch.where(leave, i, out_step)
-        out_f = torch.where(leave, f_prev, out_f)
-        out_t = torch.where(leave, tcurr, out_t)
-        enter = own & ~own_prev
-        in_step = torch.where(enter, i + 1, in_step)
-        in_f = torch.where(enter, f, in_f)
-        alive = alive & (tnext < rays.tmax)
-        tcurr, f_prev, own_prev = tnext, f, own
-    return torch.stack([ev_step, ev_cross.to(i32), ev_t.view(i32), out_step,
-                        out_f.view(i32), out_t.view(i32), in_step,
-                        in_f.view(i32)])
+
+def _sweep_resolve(every: torch.Tensor, s_pad: int):
+    """From every block's record (world, 16, H, W) (`_sweep_block`): the
+    whole sweep's carry (hit, k_hit, frac, gx_h, gy_h, gz_h) and where the
+    hit's pair of samples lies in two blocks. A ray's first event is the
+    earliest of every block's own first event and of the pairs across two
+    blocks, each judged from the one block's last sample and the next
+    block's first (exactly one block starts where another ends)."""
+    rec = dict(zip(SWEEP_FIELDS, every.unbind(1)))
+    world = every.shape[0]
+    none = s_pad + 1
+
+    def sample(pre, r):
+        return tuple(rec[pre + k][r].view(torch.float32)
+                     for k in ("_f", "_gx", "_gy")) + (
+            rec[pre + "_valid"][r] != 0,)
+
+    best = torch.full_like(rec["ev_g"][0], none)
+    cross = torch.zeros_like(best, dtype=torch.bool)
+    across = torch.zeros_like(cross)
+    vals = tuple(torch.zeros_like(best, dtype=torch.float32)
+                 for _ in range(4))
+    for r in range(world):
+        own_vals = tuple(rec[k][r].view(torch.float32) for k in
+                         ("ev_frac", "ev_gx", "ev_gy", "ev_gz"))
+        cands = [(rec["ev_g"][r], rec["ev_cross"][r] != 0, own_vals, False)]
+        # the pair from block r's last sample to the next block's first
+        last_g = rec["last_g"][r]
+        prev = sample("last", r)
+        nxt = torch.zeros_like(cross)
+        cur = tuple(torch.zeros_like(v) for v in prev)
+        for q in range(world):
+            if q != r:
+                m = (last_g >= 0) & (rec["first_g"][q] == last_g + 1)
+                nxt = nxt | m
+                cur = tuple(torch.where(m, a, b)
+                            for a, b in zip(sample("first", q), cur))
+        both = nxt & prev[3] & cur[3]
+        crossing = both & (prev[0] > 0.0) & (cur[0] < 0.0)
+        event = crossing | (both & (prev[0] < 0.0) & (cur[0] > 0.0))
+        cands.append((torch.where(event, last_g + 1, none), crossing,
+                      _take(*prev[:3], *cur[:3]), True))
+        for g, c, v, a in cands:
+            earlier = g < best
+            best = torch.where(earlier, g, best)
+            cross = torch.where(earlier, c, cross)
+            across = torch.where(earlier, a, across)
+            vals = tuple(torch.where(earlier, x, y) for x, y in zip(v, vals))
+    hit = (best < none) & cross
+    s = dict(hit=hit, k_hit=torch.where(hit, best - 1, 0),
+             frac=vals[0], gx_h=vals[1], gy_h=vals[2], gz_h=vals[3])
+    return s, hit & across
+
+
+def sweep_plain(slabs: torch.Tensor, geo: torch.Tensor, rays: torch.Tensor,
+                spec: SweepSpec, block=None):
+    """The sweep of volume/sweep_cuda.slab_sweep, in plain PyTorch: (points,
+    normals) in the camera frame, or with block = (x_off, lo, hi) the
+    block's record (`_sweep_block`)."""
+    H, W = spec.shape
+    x_off, lo, hi = block or (0, 0, spec.dims[0])
+    sample = _sampler(geo, rays, spec, x_off, slabs.shape[2])
+    slabs = _padded(slabs, spec.s_pad)
+    if block is not None:
+        return _sweep_block(slabs, spec.s_pad, sample, H, W, lo, hi)
+    s = _slab_sweep(slabs, spec.s_pad, lambda g, sl: sample(g, sl)[:4], H, W)
+    _, z_star, normal, ok = _sweep_outputs(s, spec.slab_dz)
+    return _sweep_points(spec, z_star, normal, ok, geo, rays)
+
+
+def resolve_plain(every: torch.Tensor, geo: torch.Tensor, rays: torch.Tensor,
+                  spec: SweepSpec):
+    """volume/sweep_cuda.sweep_resolve in plain PyTorch: (points, normals,
+    straddle) from every block's record."""
+    s, straddle = _sweep_resolve(every, spec.s_pad)
+    _, z_star, normal, ok = _sweep_outputs(s, spec.slab_dz)
+    return _sweep_points(spec, z_star, normal, ok, geo, rays) + (straddle,)
+
+
+def raycast(vol: TsdfVolume, camera_pose, intr: Intr, shape: Tuple[int, int],
+            config: TsdfConfig):
+    """The source's `raycast`: the z-slab sweep for any pose whose rays run
+    towards +z in the volume (rays with direction z <= 1e-6 report no
+    surface). Every ray samples the slabs z = k m vz (m = `sweep_spec`'s
+    stride) bilinearly where it meets them; the first +/- crossing between
+    two valid samples is a hit, refined linearly in z, with the slabs'
+    gradients as its normal; a -/+ crossing ends the ray. Returns (points,
+    normals) (H, W, 3) in the camera frame, NaN where no surface was hit."""
+    R, t, dirs = camera_rays(vol, camera_pose, shape, intr)
+    spec = sweep_spec("general", shape, config)
+    return sweep_cuda.slab_sweep(slab_stack(vol.tsdf, spec.m),
+                                 torch.cat([t, R.reshape(-1)]),
+                                 dirs.contiguous(), spec)
+
+
+def separable_rays(vol: TsdfVolume, camera_pose, intr: Intr, shape):
+    """(geo, rays) of `raycast_separable`: the camera's position in the
+    volume with an identity rotation, and (qx (W), qy (H))."""
+    H, W = shape
+    dev = vol.tsdf.device
+    f32 = torch.float32
+    cam = tuple(_f32(a, dev) for a in camera_pose)
+    _, t = se3.compose(se3.inverse((vol.pose_r, vol.pose_t)), cam)
+    qx = (torch.arange(W, dtype=f32, device=dev) - intr.cx) / _f32(intr.fx,
+                                                                   dev)
+    qy = (torch.arange(H, dtype=f32, device=dev) - intr.cy) / _f32(intr.fy,
+                                                                   dev)
+    geo = torch.cat([t, torch.eye(3, dtype=f32, device=dev).reshape(-1)])
+    return geo, torch.cat([qx, qy])
+
+
+def raycast_separable(vol: TsdfVolume, camera_pose, intr: Intr,
+                      shape: Tuple[int, int], config: TsdfConfig):
+    """The source's `raycast_separable`: the slab sweep for a camera whose
+    rotation in the volume frame is the identity (callers check; the
+    engines do). The ray through pixel (u, v) is t + q (z - t_z), q =
+    ((u - cx) / fx, (v - cy) / fy, 1), so a sample's x depends on (u, z)
+    only and its y on (v, z); the bilinear and its gradient are summed in
+    the source's order (its one-hot matmuls: rows of the slab first, y
+    then x). Same crossing and refinement as `raycast`."""
+    geo, rays = separable_rays(vol, camera_pose, intr, shape)
+    spec = sweep_spec("separable", shape, config)
+    return sweep_cuda.slab_sweep(slab_stack(vol.tsdf, spec.m), geo, rays,
+                                 spec)
 
 
 def raycast_depth(vol: TsdfVolume, camera_pose, intr: Intr,
                   shape: Tuple[int, int], config: TsdfConfig):
     """The depth-map raycast (tsdf_volume.cu:196-256): (depth (H, W) int32
     millimetres, truncated, 0 where no surface; normals (H, W, 3)), from
-    `raycast`."""
+    `raycast`, the slab sweep, as in the source."""
     points, normals = raycast(vol, camera_pose, intr, shape, config)
     z = points[..., 2]
     mm = torch.nan_to_num(z * 1000.0, nan=0.0).to(torch.int32)

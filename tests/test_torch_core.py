@@ -19,6 +19,7 @@ The tests marked `cuda` hold the pack kernel and the data Gram kernel
 against their plain versions, and the data Gram against itself over three
 launches and against the fixed-order model (they skip without a card)."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +55,7 @@ from dynfu_tpu_torch.ops import imgproc as timg
 from dynfu_tpu_torch.solver import gn as tgn
 from dynfu_tpu_torch.solver import gram_cuda
 from dynfu_tpu_torch.volume import fusion as tfusion
+from dynfu_tpu_torch.volume import sweep_cuda
 from dynfu_tpu_torch.volume import tsdf as ttv
 from dynfu_tpu_torch.warp import field as tfield
 
@@ -289,16 +291,9 @@ def _small_case(name, mp):
                 [tfusion.band_budget(c, d) for c in (tcfg, _config(512)[1])
                  for d in (0, 1, 3)])
     assert name == "raycast_depth"
-    # JAX's raycast_depth converts its `raycast` (the slab sweep, a TPU
-    # formulation); with the port's formulation, raycast_march, under it
-    dists = _dists(_depth(0.0))
-    tv = ttv.integrate(_tvol(tcfg), torch.as_tensor(dists), IDENT, tintr,
-                       tcfg)
-    jv = jtv.TsdfVolume(jnp.asarray(tv.tsdf.numpy()),
-                        jnp.asarray(tv.weight.numpy()), jnp.eye(3),
-                        jnp.asarray(VOL_T))
-    mp.setattr(jtv, "raycast", jtv.raycast_march)
-    return (jtv.raycast_depth.__wrapped__(jv, IDENT, jintr, (H, W), jcfg),
+    # both convert their `raycast`, the slab sweep
+    jcfg, tcfg, jv, tv = _swept_volume()
+    return (jtv.raycast_depth(jv, IDENT, jintr, (H, W), jcfg),
             ttv.raycast_depth(tv, IDENT, tintr, (H, W), tcfg))
 
 
@@ -307,7 +302,7 @@ SMALL = ["intr_project", "intr_reproject", "se3_make", "se3_apply",
          "set_pose", "apply_affine", "band_budget", "raycast_depth"]
 
 
-NORMALS_TOL = {"compute_normals_and_mask_depth": 1e-5, "raycast_depth": 2e-3}
+NORMALS_TOL = {"compute_normals_and_mask_depth": 1e-5}
 
 
 @pytest.mark.parametrize("name", SMALL)
@@ -317,8 +312,8 @@ def test_small_functions_match_jax(name, monkeypatch):
     masked depth) index for index, NaNs at the same places, floats within
     1e-6 (the same float32 operations), normals within the bounds of their
     own tests: 1e-5 from the depth map (test_compute_points_normals_
-    matches_jax), 2e-3 from the raycast (tests/test_torch_rigid.py::
-    test_raycast_matches_raycast_march)."""
+    matches_jax), the slab sweep's from raycast_depth
+    (test_sweep_matches_jax: _hold_sweep_normals)."""
     want, got = (_np(o) for o in _small_case(name, monkeypatch))
     want = want if isinstance(want, tuple) else (want,)
     got = got if isinstance(got, tuple) else (got,)
@@ -327,6 +322,8 @@ def test_small_functions_match_jax(name, monkeypatch):
         assert g.shape == w.shape
         if np.issubdtype(w.dtype, np.integer):
             np.testing.assert_array_equal(g, w)
+        elif name == "raycast_depth":
+            _hold_sweep_normals(g, w)
         else:
             np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
             tol = NORMALS_TOL.get(name, 1e-6)
@@ -371,6 +368,217 @@ def test_integrate_fresh_matches_separable():
     tv = ttv.integrate(tv, torch.as_tensor(d1), IDENT, TIntr(*INTR), tcfg,
                        fresh=True)
     _assert_vol_equal(jv, tv)
+
+
+# --- the slab sweeps, the homography formulations, the dispatch ----------
+_R3 = np.asarray(jse3.from_rodrigues(jnp.asarray([0.03, -0.05, 0.02]),
+                                     jnp.zeros(3))[0])
+POSES = {"identity": IDENT,
+         "rotated": (_R3, np.asarray([0.01, -0.02, 0.015], np.float32)),
+         "translated": (np.eye(3, dtype=np.float32),
+                        np.asarray([0.01, -0.02, 0.015], np.float32))}
+
+
+def _swept_volume(dx=0.0):
+    """The sphere integrated at the identity into a 64^3 volume (the port's
+    integrate, the source's bits), as (jcfg, tcfg, JAX volume, port
+    volume)."""
+    jcfg, tcfg = _config(64)
+    tv = ttv.integrate(_tvol(tcfg), torch.as_tensor(_dists(_depth(dx))),
+                       IDENT, TIntr(*INTR), tcfg)
+    jv = jtv.TsdfVolume(jnp.asarray(tv.tsdf.numpy()),
+                        jnp.asarray(tv.weight.numpy()), jnp.eye(3),
+                        jnp.asarray(VOL_T))
+    return jcfg, tcfg, jv, tv
+
+
+def _hold_sweep_normals(got, want):
+    """A sweep's normals: NaN at the same pixels; within 2e-4 at all but
+    0.1 % of the hits. A normal is the bilinear's gradient, which jumps
+    where a sample crosses a cell edge: where a sample lies on an edge
+    (py = 21.0 exactly, say), the source's compiled program, which fuses
+    multiply-adds, puts it in the other cell, and the normal turns (by up
+    to 0.85; 4 of 6,251 hits in test_sweep_matches_jax[raycast-identity],
+    the others within 1.6e-4)."""
+    got, want = np.asarray(got), np.asarray(want)
+    hit = ~np.isnan(want[..., 0])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    dn = np.abs(got[hit] - want[hit]).max(-1)
+    assert (dn > 2e-4).mean() <= 1e-3, np.sort(dn)[-10:]
+
+
+def _hold_sweep(got, want, min_hits=3000):
+    """A raycast against the source's: the same hit mask (no sample of
+    these scenes lies within roundoff of zero), points within 1e-5 m (the
+    sample positions round otherwise under fused multiply-adds; 1.9e-6
+    measured) and normals as _hold_sweep_normals holds them."""
+    (gp, gn), (wp, wn) = _np(got), _np(want)
+    hit = ~np.isnan(wp[..., 0])
+    assert hit.sum() > min_hits
+    np.testing.assert_array_equal(~np.isnan(gp[..., 0]), hit)
+    np.testing.assert_allclose(gp[hit], wp[hit], rtol=0, atol=1e-5)
+    _hold_sweep_normals(gn, wn)
+
+
+@pytest.mark.parametrize("fn,pose", [("raycast", "identity"),
+                                     ("raycast", "rotated"),
+                                     ("raycast_separable", "identity"),
+                                     ("raycast_separable", "translated")])
+def test_sweep_matches_jax(fn, pose):
+    """The plain slab sweep (the kernel's CPU version) against the source's
+    raycast (any pose towards +z) and raycast_separable (an axis-aligned
+    camera) at 64^3, 96x128: _hold_sweep. The source's separable bilinear
+    is two matmuls, float32 on the CPU; the port sums the same two
+    products per row and column in their order."""
+    jcfg, tcfg, jv, tv = _swept_volume()
+    want = getattr(jtv, fn)(jv, POSES[pose], JIntr(*INTR), (H, W), jcfg)
+    got = getattr(ttv, fn)(tv, POSES[pose], TIntr(*INTR), (H, W), tcfg)
+    _hold_sweep(got, want)
+
+
+@pytest.mark.parametrize("tilt,margin", [(0.05, 1.15), (0.35, 1.6)])
+def test_raycast_rotated_matches_jax(tilt, margin):
+    """raycast_rotated (the separable sweep on the virtual image, the
+    validity-weighted bilinear back-map with its silhouette guard, the
+    rotation into the camera frame) against the source's at two tilts under
+    0.6 rad and two virtual-image margins: _hold_sweep."""
+    jcfg, tcfg, jv, tv = _swept_volume()
+    axis = np.asarray([0.6, -0.8, 0.3]) / np.linalg.norm([0.6, -0.8, 0.3])
+    R, _ = jse3.from_rodrigues(jnp.asarray(axis * tilt, jnp.float32),
+                               jnp.zeros(3))
+    pose = (np.asarray(R), np.asarray([0.01, -0.02, 0.015], np.float32))
+    want = jtv.raycast_rotated(jv, pose, JIntr(*INTR), (H, W), jcfg,
+                               fov_margin=margin)
+    got = ttv.raycast_rotated(tv, pose, TIntr(*INTR), (H, W), tcfg,
+                              fov_margin=margin)
+    _hold_sweep(got, want, min_hits=2000)
+
+
+def test_warp_image_nearest_exact():
+    """_warp_image_nearest (and _homography_pixels under it) equal to the
+    source's, index for index, on seeded images through rotation
+    homographies between two cameras, a small and a large tilt."""
+    rng = np.random.default_rng(7)
+    img = rng.integers(0, 4000, (H, W)).astype(np.float32)
+    src = (150.0, 150.0, W / 2 + 1.5, H / 2 - 2.5)
+    for rv in ([0.01, -0.02, 0.005], [0.1, 0.15, -0.12]):
+        R = np.asarray(jse3.from_rodrigues(jnp.asarray(rv, jnp.float32),
+                                           jnp.zeros(3))[0])
+        jH = jtv._rotation_homography(jnp.asarray(R), JIntr(*INTR),
+                                      JIntr(*src))
+        tH = ttv._rotation_homography(torch.as_tensor(R), TIntr(*INTR),
+                                      TIntr(*src))
+        np.testing.assert_allclose(tH.numpy(), np.asarray(jH), rtol=1e-6)
+        want = np.asarray(jtv._warp_image_nearest(jnp.asarray(img), jH,
+                                                  (H, W)))
+        got = ttv._warp_image_nearest(torch.as_tensor(img),
+                                      torch.as_tensor(np.asarray(jH)),
+                                      (H, W)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert (want == 0).mean() < 0.5
+
+
+@pytest.mark.parametrize("tilt", [0.05, 0.4])
+def test_integrate_rotated_matches_jax(tilt):
+    """integrate_rotated over two accumulating frames, the second fresh,
+    against the source's at two tilts: f16 tsdf and u8 weight exact (the
+    warped dists image exactly, then the per-voxel integrate, which is the
+    source's separable integrate bit for bit)."""
+    jcfg, tcfg = _config(64)
+    axis = np.asarray([0.3, 0.9, -0.2]) / np.linalg.norm([0.3, 0.9, -0.2])
+    R = np.asarray(jse3.from_rodrigues(jnp.asarray(axis * tilt, jnp.float32),
+                                       jnp.zeros(3))[0])
+    pose = (R, np.asarray([0.01, 0.0, -0.01], np.float32))
+    jv, tv = _jvol(jcfg), _tvol(tcfg)
+    for i, dx in enumerate((0.0, 0.01, 0.02)):
+        dists = _dists(_depth(dx))
+        jv = jtv.integrate_rotated(jv, jnp.asarray(dists), pose,
+                                   JIntr(*INTR), jcfg, fresh=i == 2)
+        tv = ttv.integrate_rotated(tv, torch.as_tensor(dists), pose,
+                                   TIntr(*INTR), tcfg, fresh=i == 2)
+        if i == 1:
+            assert int(np.count_nonzero(np.asarray(jv.weight) == 2)) > 1000
+        _assert_vol_equal(jv, tv)
+
+
+def _dispatch_choices(jax_eng, port):
+    """(integrate, raycast) formulation names each engine's dispatch picks
+    for its last pose: the formulation functions replaced by recorders."""
+    names = {}
+
+    def rec(kind, name):
+        def fn(*a, **kw):
+            if kw.get("separable"):  # the port's separable formulation
+                name_ = "separable"
+            else:
+                name_ = name
+            names.setdefault(kind, []).append((name_, kw.get("fov_margin")))
+            return None
+        return fn
+    saved = []
+    for mod, table in ((jtv, {"integrate_separable": "separable",
+                              "integrate": "gather",
+                              "integrate_rotated": "rotated"}),
+                       (ttv, {"integrate": "gather",
+                              "integrate_rotated": "rotated"})):
+        for attr, name in table.items():
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, rec("integrate", name))
+        for attr in ("raycast", "raycast_separable", "raycast_rotated",
+                     "raycast_march"):
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, rec("raycast", attr))
+    try:
+        for eng in (jax_eng, port):
+            pose = eng.poses[-1]
+            eng._integrate(None, pose, fresh=True)
+            eng._raycast(pose)
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return names
+
+
+@pytest.mark.parametrize("mode", ["auto", "exact"])
+def test_dispatch_matches_jax(mode):
+    """KinFu's dispatch against the source's over a grid of camera poses
+    (tilts from 0 to 1.4 rad about three axes, with a translation):
+    _rotation_angle and _raycast_margin equal (both in float64 on the
+    host), _aligned equal, and the same integrate and raycast formulation
+    (at the same virtual-image margin) in raycast_mode `mode`."""
+    from dynfu_tpu.engine.kinfu import KinFu as JaxKinFu
+    from dynfu_tpu.engine.params import KinFuParams as JKinFuParams
+    from dynfu_tpu_torch.engine.kinfu import KinFu
+    from dynfu_tpu_torch.utils import convert
+
+    jp = JKinFuParams(rows=H, cols=W, intr=JIntr(*INTR),
+                      volume_dims=(32,) * 3, raycast_mode=mode,
+                      fused_frame=False)
+    jax_eng, port = JaxKinFu(jp), KinFu(convert.params(jp), device="cpu")
+    seen = set()
+    for axis in ([1.0, 0.0, 0.0], [0.2, 1.0, 0.1], [0.3, -0.4, 0.85]):
+        axis = np.asarray(axis) / np.linalg.norm(axis)
+        for tilt in (0.0, 3e-7, 1e-4, 0.02, 0.1, 0.3, 0.55, 0.62, 0.9, 1.05,
+                     1.15, 1.4):
+            R = np.asarray(jse3.from_rodrigues(
+                jnp.asarray(axis * tilt, jnp.float32), jnp.zeros(3))[0])
+            pose = (R, np.asarray([0.01, -0.02, 0.03], np.float32))
+            for e in (jax_eng, port):
+                e.poses = [pose]
+            assert port._rotation_angle(pose) == jax_eng._rotation_angle(
+                pose)
+            assert port._raycast_margin(pose) == jax_eng._raycast_margin(
+                pose)
+            assert port._aligned(pose) == jax_eng._aligned(pose)
+            got = _dispatch_choices(jax_eng, port)
+            assert got["integrate"][0] == got["integrate"][1]
+            assert got["raycast"][0] == got["raycast"][1]
+            seen.add(got["raycast"][1][0])
+    want = {"raycast_separable", "raycast", "raycast_march"}
+    assert seen == (want | {"raycast_rotated"} if mode == "auto" else want)
+    bad = dataclasses.replace(convert.params(jp), raycast_mode="fast")
+    with pytest.raises(ValueError):
+        KinFu(bad, device="cpu")
 
 
 @pytest.mark.parametrize("dims", [
@@ -930,6 +1138,58 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run with -m cuda on the GPU machine")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["general", "separable"])
+def test_sweep_kernel_equals_plain(dev, mode):
+    """The slab sweep kernel against its plain version on the card at odd
+    shapes (61x83 rays; a 48x40x56 volume at m = 2, so that the slabs are
+    padded) under a tilted pose (general) or a translated one
+    (separable): the same hit masks and NaN positions, points within
+    1e-6 m, normals within 1e-5; the records of three x-blocks (each with
+    its 1-plane halo) exactly the plain version's, and their resolve the
+    whole sweep's, bit for bit."""
+    shape = (61, 83)
+    cfg = ttv.TsdfConfig(dims=(48, 40, 56), size=(1.2, 1.0, 1.4),
+                         trunc_dist=0.06)
+    intr = TIntr(70.0, 70.0, 41.5, 30.0)
+    d = sphere_depth((0.05, -0.03, 0.8), 0.25, *shape, 70.0, 70.0, 41.5,
+                     30.0)
+    vol = ttv.create(cfg, (torch.eye(3), torch.as_tensor([-0.6, -0.5, 0.2])),
+                     device="cpu")
+    vol = ttv.integrate(vol, timg.compute_dists(torch.as_tensor(
+        d.astype(np.int32)), intr), IDENT, intr, cfg)
+    vol = ttv.TsdfVolume(*(t.to(dev) for t in vol))
+    if mode == "general":
+        R, t, rays = ttv.camera_rays(vol, (_rot(9.0), np.asarray(
+            [0.01, -0.02, 0.03], np.float32)), shape, intr)
+        geo, rays = torch.cat([t, R.reshape(-1)]), rays.contiguous()
+    else:
+        geo, rays = ttv.separable_rays(vol, POSES["translated"], intr,
+                                        shape)
+    spec = ttv.sweep_spec(mode, shape, cfg)
+    assert spec.m == 2 and spec.s_pad > (56 - 1) // 2 + 1
+    slabs = ttv.slab_stack(vol.tsdf, spec.m)
+    got = sweep_cuda.slab_sweep(slabs, geo, rays, spec)
+    want = sweep_cuda.slab_sweep_plain(slabs, geo, rays, spec)
+    hit = ~torch.isnan(want[0][..., 0])
+    assert hit.sum() > 1000
+    for g, w, tol in zip(got, want, (1e-6, 1e-5)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert float((g[hit] - w[hit]).abs().max()) <= tol
+    records = []
+    for lo, hi in ((0, 16), (16, 31), (31, 48)):
+        h0, h1 = int(lo > 0), int(hi < 48)
+        args = (ttv.slab_stack(vol.tsdf[lo - h0:hi + h1], spec.m), geo, rays,
+                spec, (lo - h0, lo, hi))
+        records.append(sweep_cuda.slab_sweep(*args))
+        assert torch.equal(records[-1], sweep_cuda.slab_sweep_plain(*args))
+    p, n, straddle = sweep_cuda.sweep_resolve(torch.stack(records), geo,
+                                              rays, spec)
+    for a, b in ((p, got[0]), (n, got[1])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(straddle.sum()) > 0
 
 
 @pytest.mark.cuda

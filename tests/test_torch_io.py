@@ -407,12 +407,13 @@ def _tiny_frames(n=4):
 
 
 def test_dynfusion_render_against_raycast_march():
-    """DynFusion.render(0) against JAX's Phong of JAX's raycast_march of
-    the same volume and pose: the raycasts as the port's raycast tests hold
-    them (hit masks agree on >= 99.5 % of pixels, points within 1e-4 m);
-    the images equal on >= 99 % of pixels, and where both rays hit, within
-    one level on all but 0.5 % of pixels (the normals differ by float32
-    roundoff, up to 2e-3)."""
+    """DynFusion.render(0) against JAX's Phong of the raycast JAX's
+    DynFusion.render picks for the same volume and pose (the parity
+    engine's identity: raycast_separable; the test once held the port's
+    per-ray march against raycast_march and keeps its name): hit masks
+    agree on >= 99.5 % of pixels, points within 1e-4 m; the images equal on
+    >= 99 % of pixels, and where both rays hit, within one level on all but
+    0.5 % of pixels (the normals differ by float32 roundoff)."""
     eng, _ = _port_tiny()
     for d in _tiny_frames(2):
         eng(d)
@@ -424,10 +425,11 @@ def test_dynfusion_render_against_raycast_march():
     vol = jtv.TsdfVolume(*(jnp.asarray(t.numpy()) for t in eng.vol))
     pose = tuple(jnp.asarray(a) for a in eng.poses[-1])
     jintr = JIntr(p.intr.fx, p.intr.fy, p.intr.cx, p.intr.cy)
-    jp, jn = jtv.raycast_march(vol, pose, jintr, (p.rows, p.cols), jcfg)
+    jp, jn = jtv.raycast_separable(vol, pose, jintr, (p.rows, p.cols),
+                                   jcfg)
     want = np.asarray(jimg.render_image_points(jp, jn, p.light_pose))
-    tp = tv.raycast(eng.vol, eng.poses[-1], p.intr, (p.rows, p.cols),
-                    cfg)[0].numpy()
+    tp = tv.raycast_separable(eng.vol, eng.poses[-1], p.intr,
+                              (p.rows, p.cols), cfg)[0].numpy()
     jp = np.asarray(jp)
     hj, ht = ~np.isnan(jp[..., 0]), ~np.isnan(tp[..., 0])
     assert hj.sum() > 200 and (hj == ht).mean() >= 0.995

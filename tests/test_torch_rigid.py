@@ -21,6 +21,7 @@ version at edge-case shapes; they skip without a card."""
 
 import contextlib
 import dataclasses
+import functools
 import io
 
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from dynfu_tpu.warp.field import WarpField as JWarpField
 from dynfu_tpu_torch.core import se3
 from dynfu_tpu_torch.engine.dynfusion import DynFusion, Frame
 from dynfu_tpu_torch.engine.dynfusion import _mask_deforming_depth as t_mask
+from dynfu_tpu_torch.engine import kinfu
 from dynfu_tpu_torch.engine.kinfu import KinFu
 from dynfu_tpu_torch.ops import imgproc, stencil_cuda
 from dynfu_tpu_torch.rigid import icp
@@ -237,7 +239,7 @@ def test_raycast_matches_raycast_march():
                                                        (H, W), cfg))
     tcfg = tv.TsdfConfig(cfg.dims, cfg.size, cfg.trunc_dist, cfg.max_weight,
                          cfg.raycast_step_factor, cfg.gradient_delta_factor)
-    tp, tn = (a.numpy() for a in tv.raycast(
+    tp, tn = (a.numpy() for a in tv.raycast_march(
         convert.volume(*vol, device="cpu"), tuple(np.array(a) for a in pose),
         TINTR, (H, W), tcfg))
     hj, ht = ~np.isnan(jp[..., 0]), ~np.isnan(tp[..., 0])
@@ -274,70 +276,111 @@ def _kinfu_trace(eng):
     return trace, tuple(np.array(a) for a in eng.poses[-1])
 
 
-def _jax_kinfu_runs():
-    """The source's KinFu, the per-stage path with the exact formulations:
-    on FRAMES (state before frame i, pose after frame i); on RESET_SEQ
-    its trace (_kinfu_trace)."""
-    eng = JaxKinFu(KP)
-    states, poses = [], []
+# KinFu's raycast_mode: "exact" (the separable sweep for an aligned pose,
+# else the slab sweep or the march, the per-voxel integrate) and the
+# default "auto" (the homography integrate and rotated sweep for a tilted
+# pose)
+KP_MODES = {"exact": KP, "auto": dataclasses.replace(KP, raycast_mode="auto")}
+
+
+def _jax_kinfu_runs(mode="exact"):
+    """The source's KinFu as shipped, the per-stage path (fused_frame
+    False), in raycast_mode `mode`: on FRAMES (state before frame i, pose
+    after frame i, the formulations of frame i); in "exact" mode also its
+    trace on RESET_SEQ (_kinfu_trace)."""
+    eng = JaxKinFu(KP_MODES[mode])
+    states, poses, used = [], [], []
     for d in FRAMES:
         states.append(_kinfu_state(eng))
         eng(d)
         poses.append(tuple(np.array(a) for a in eng.get_camera_pose()))
-    return (states, poses), _kinfu_trace(JaxKinFu(KP))
+        pose = eng.poses[-1]
+        used.append((eng._aligned(pose), eng._raycast_margin(pose)))
+    trace = _kinfu_trace(JaxKinFu(KP)) if mode == "exact" else None
+    return (states, poses, used), trace
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_refs(request):
-    """The module's JAX engine runs (module_refs): KinFu, the parity frame
-    loop with its unique-edge frame, and foreground tracking."""
-    refs = module_refs(request, {"kinfu": _jax_kinfu_runs,
-                                 "parity": _jax_parity_runs,
-                                 "fg": _jax_fg_frames})
+    """The module's JAX engine runs (module_refs): KinFu in both
+    raycast_modes, the parity frame loop with its unique-edge frame, and
+    foreground tracking."""
+    refs = module_refs(request, {
+        "kinfu": _jax_kinfu_runs,
+        "kinfu_auto": functools.partial(_jax_kinfu_runs, "auto"),
+        "parity": _jax_parity_runs, "fg": _jax_fg_frames})
     yield refs
     refs.close()
 
 
-@pytest.fixture(scope="module")
-def jax_kinfu(jax_refs):
-    """The source's KinFu on FRAMES: (state before frame i, pose after
-    frame i)."""
-    return jax_refs["kinfu"][0]
+def _jax_kinfu(jax_refs, mode):
+    """The source's KinFu on FRAMES in raycast_mode `mode`: (state before
+    frame i, pose after frame i, (aligned, margin) of pose i)."""
+    return jax_refs["kinfu" if mode == "exact" else "kinfu_auto"][0]
 
 
-def _port_kinfu():
-    return KinFu(convert.params(KP), device="cpu")
+def _port_kinfu(mode="exact"):
+    return KinFu(convert.params(KP_MODES[mode]), device="cpu")
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
-def test_kinfu_frame_from_jax_state(jax_kinfu, k):
+@pytest.mark.parametrize("mode,k", [
+    *(pytest.param("exact", k, id=str(k)) for k in (1, 2, 3)),
+    *(pytest.param("auto", k, id=f"auto-{k}") for k in (1, 2, 3))])
+def test_kinfu_frame_from_jax_state(jax_refs, mode, k):
     """Frame k from the source's state after frame k - 1 (its volume, pose
-    history and raycast pyramid): the same pose within 1e-4 (the ICP
-    tolerance above), the same frame count, no reset."""
-    states, poses = jax_kinfu
-    port = convert.load_kinfu_state(_port_kinfu(), **states[k])
+    history and raycast pyramid) in both raycast_modes: the same pose
+    within 1e-4 (the ICP tolerance above), the same frame count, no reset.
+    In "auto" mode frames 2 and 3 integrate through the homography and
+    raycast through the rotated sweep (margin 1.15): a tilted pose."""
+    states, poses, used = _jax_kinfu(jax_refs, mode)
+    port = convert.load_kinfu_state(_port_kinfu(mode), **states[k])
     assert port(FRAMES[k]) is (k >= 2)
     assert port.frame_counter == k + 1 and port.resets == 0
     np.testing.assert_allclose(port.poses[-1][0], poses[k][0], atol=1e-4)
     np.testing.assert_allclose(port.poses[-1][1], poses[k][1], atol=1e-4)
+    pose = port.poses[-1]
+    assert (port._aligned(pose), port._raycast_margin(pose)) == used[k]
 
 
-def test_kinfu_free_running_four_frames(jax_kinfu):
-    """The port alone over the four frames: final pose within 5 mm and
-    0.005 of the source's, and within 5 mm of the true camera. The source
-    raycasts a rotated pose with its slab sweep, the port with the per-ray
-    march; the two reference pyramids differ by up to a march step at
-    silhouettes, which moves the next frames' ICP by millimetres at this
-    64^3, 120x160 size."""
-    _, poses = jax_kinfu
-    port = _port_kinfu()
+def _free_running(jax_refs, mode):
+    """The port alone over the four frames in raycast_mode `mode`: no reset,
+    the final pose within 1e-4 of the source's KinFu as shipped (its
+    formulations; the stepwise tests' tolerance; 1.3e-7 measured in
+    "exact" mode, 7.5e-7 in "auto"). Returns (port, the formulations it
+    ran)."""
+    _, poses, _ = _jax_kinfu(jax_refs, mode)
+    port = _port_kinfu(mode)
+    kinfu.FORMULATIONS.clear()
     for d in FRAMES:
         port(d)
     assert port.resets == 0 and len(port.poses) == len(FRAMES)
     R, t = port.get_camera_pose()
-    np.testing.assert_allclose(R, poses[-1][0], atol=5e-3)
-    np.testing.assert_allclose(t, poses[-1][1], atol=5e-3)
-    np.testing.assert_allclose(t, STEP * 3, atol=5e-3)
+    np.testing.assert_allclose(R, poses[-1][0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t, poses[-1][1], rtol=0, atol=1e-4)
+    return port, dict(kinfu.FORMULATIONS)
+
+
+def test_kinfu_free_running_four_frames_auto(jax_refs):
+    """_free_running in raycast_mode "auto" (KinFuParams' default): the
+    tilted poses of frames 1-3 integrate through the homography and
+    raycast through the rotated sweep, as in the source. At this 64^3,
+    120x160 size the source's own auto mode ends 17.5 mm from the true
+    camera (the homography resamples the 120x160 image; "exact" ends
+    3.5 mm from it); the port follows it."""
+    port, used = _free_running(jax_refs, "auto")
+    assert used == {"integrate:separable": 1, "integrate:rotated": 3,
+                    "raycast:rotated": 3}
+
+
+def test_kinfu_free_running_four_frames(jax_refs):
+    """_free_running in raycast_mode "exact": the tilted poses integrate per
+    voxel and raycast through the slab sweep, as in the source; the final
+    pose within 5 mm of the true camera."""
+    port, used = _free_running(jax_refs, "exact")
+    assert used == {"integrate:separable": 1, "integrate:gather": 3,
+                    "raycast:sweep": 3}
+    np.testing.assert_allclose(port.get_camera_pose()[1], STEP * 3,
+                               atol=5e-3)
     # the reference's accessors: the clamp, the volume, the world-frame mesh
     assert port.get_camera_pose(99) is port.poses[-1]
     assert port.get_camera_pose(0) is port.poses[0]
