@@ -14,23 +14,36 @@
    (N = 65536, K = 8, D = 640), and the 512^3 rigid slice's stencil fetch
    (frame 1's pyramid against frame 0's raycast, the first ICP iteration's
    indices, at levels 0, 1 and 2: 480x640 with R = 2, 240x320 with R = 3,
-   120x160 with R = 4), and the slab sweep (csrc/sweep.cu; no TPU kernel:
-   it replaces the source's XLA sweep loop) on the 512^3 rigid slice's
-   frame-0 volume: the general sweep at 640x480 under a tilted pose
-   (307,200 rays x 103 slabs), the separable sweep on the rotated
-   raycast's 744x560 virtual image (margin 1.15) and at the sharded step's
-   640x480, whole and as two x-blocks (split at plane 192), and the
-   resolve of the two blocks' records (hit masks equal, points within
-   1e-6 m, normals within 1e-5, the rows bitwise the plain version's
-   counted; records exact; the resolve bitwise the whole sweep, with hits
-   across the face) — checks that they agree (selections and the stencil
-   exactly, NaN positions included; floats within the stated tolerance)
+   120x160 with R = 4), the slab stack and its sign summary
+   (csrc/slab_stack.cu; no TPU kernel: the source's strided slice and
+   transpose, XLA's copy) of that volume and of an x-block (the slabs
+   bitwise, the summary equal; its library call the .contiguous() copy),
+   and the slab sweep (csrc/sweep.cu; no TPU kernel: it replaces the
+   source's XLA sweep loop) on the 512^3 rigid slice's frame-0 volume: the
+   general sweep at 640x480 under a tilted pose (307,200 rays x 103
+   slabs), the separable sweep on the rotated raycast's 744x560 virtual
+   image (margin 1.15) and at the sharded step's 640x480, whole and as two
+   x-blocks (split at plane 192), and the resolve of the two blocks'
+   records, then the same (but 744x560) on two volumes built to break the
+   sweep's skip (single negative voxels scattered in bricks the summary
+   marks; a box whose faces lie on brick edges) (hit masks equal, points
+   within 1e-6 m, normals within 1e-5, the rows bitwise the plain
+   version's counted; records exact; the resolve bitwise the whole sweep,
+   with hits across the face on the frame-0 volume); each sweep case also
+   reports its kernel's own work counters (samples per ray, and the
+   warp's largest, beside a one-slab-at-a-time walk's; brick layers
+   checked, bricks and samples skipped, empty spans), and the stack and
+   sweep are timed together (raycast_device) — checks that they agree
+   (selections and the stencil exactly, NaN positions included; floats
+   within the stated tolerance)
    and times each: CUDA events over back-to-back calls (ms), the host's
    time per call without waiting for the card (host_ms), the
-   profiler's device time per call (device_ms), for the Grams and the pack
-   the time per call replayed from a CUDA graph (graph_ms: no host time in
-   it), the plain version (plain_ms) and, where one PyTorch call computes the same function, that
-   call (library_ms); bound_ms is the least time the card could take (the
+   profiler's device time per call (device_ms), for the Grams, the pack,
+   the stack and the sweep the time per call replayed from a CUDA graph
+   (graph_ms: no host time in it), the plain version (plain_ms) and, where
+   one PyTorch call computes the same function, that call (library_ms; the
+   stack's also from a graph, library_graph_ms); bound_ms is the least
+   time the card could take (the
    larger of the bytes over 3.35 TB/s and the operations over 67 TFLOP/s
    of float32), from this run's inputs. The two warp rows and the k-NN also
    report the candidates per warp and the 1-NN the sub-tiles each warp
@@ -64,7 +77,9 @@
      with raycast_mode "exact" (the per-voxel integrate and the general
      sweep), 3 + 5 frames, under the same checks; then, uncounted,
      utils/rigid_profile's profile of the rigid frame (the raycast stage's
-     host and kernel ms per frame);
+     host and kernel ms per frame) and the kernels inside one raycast by
+     name with calls and device ms (as KinFu._raycast runs it, and the
+     general sweep);
    - parity 512^3: run_benchmark(512, repeats=3) (unique edge vertices);
      zero drops, the accuracy bounds;
    - moving-camera SE(3) fusion 512^3: run_fusion_benchmark(512,
@@ -313,6 +328,13 @@ KERNELS = {
                       sweep_cuda.sweep_resolve_plain,
                       "dynfu_tpu_torch/csrc/sweep.cu",
                       "none (XLA loop): dynfu_tpu/volume/tsdf.py:629"),
+    # not a TPU kernel: the sweep's input, the volume's sampled planes as
+    # rows in x (the source's strided slice and transpose, XLA's copy), and
+    # the sign summary the sweep skips by
+    "slab_stack": (sweep_cuda.slab_stack, None, sweep_cuda.slab_stack_plain,
+                   "dynfu_tpu_torch/csrc/slab_stack.cu",
+                   "none (XLA copy): jnp.transpose(vol.tsdf[:, :, ::m], "
+                   "(2, 1, 0)), dynfu_tpu/volume/tsdf.py:768 and :850"),
 }
 # the rows of the kernels line (sweep_resolve is folded into slab_sweep's)
 TABLE = [n for n in KERNELS if n != "sweep_resolve"]
@@ -323,6 +345,8 @@ LIBRARY = {
     "pack_triangles": "boolean-index compaction of the triangle rows",
     "data_normal": "torch.matmul of the dense (s2 W)^T and W",
     "monomial_grams": "batched torch.matmul of the monomial-scaled strips",
+    "slab_stack": "tensor.contiguous() of the strided, transposed view (the "
+                  "stack alone, no summary)",
 }
 # main path -> the kernels it must launch
 PATHS = {
@@ -330,8 +354,8 @@ PATHS = {
                   "warp_fused", "data_normal"),
     "fusion": ("pack_triangles", "knn_gather", "warp_fused_dlb",
                "monomial_grams"),
-    "rigid": ("fetch_stencil", "slab_sweep"),
-    "rigid_exact512": ("fetch_stencil", "slab_sweep"),
+    "rigid": ("fetch_stencil", "slab_stack", "slab_sweep"),
+    "rigid_exact512": ("fetch_stencil", "slab_stack", "slab_sweep"),
     "parity512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                   "warp_fused", "data_normal"),
     "movingcam": ("pack_triangles", "knn_gather", "warp_fused_dlb",
@@ -343,16 +367,17 @@ PATHS = {
     "umbrella512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                     "warp_fused", "data_normal"),
     "fixed128": ("pack_triangles", "knn_gather", "nn1_window_sweep",
-                 "warp_fused", "data_normal", "slab_sweep"),
+                 "warp_fused", "data_normal", "slab_stack", "slab_sweep"),
     "cli512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
-               "warp_fused", "data_normal", "slab_sweep"),
-    "cli_rigid512": ("fetch_stencil", "pack_triangles", "slab_sweep"),
+               "warp_fused", "data_normal", "slab_stack", "slab_sweep"),
+    "cli_rigid512": ("fetch_stencil", "pack_triangles", "slab_stack",
+                     "slab_sweep"),
     "dist_parity512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
                        "warp_fused", "data_normal"),
     "dist_fusion512": ("pack_triangles", "knn_gather", "warp_fused_dlb",
                        "monomial_grams"),
     "dist_step512": ("knn_gather", "warp_fused", "data_normal",
-                     "slab_sweep", "sweep_resolve"),
+                     "slab_stack", "slab_sweep", "sweep_resolve"),
 }
 # the 512^3 paths whose engines' formulations are counted
 # (kinfu.FORMULATIONS): together they must run the source's separable,
@@ -438,8 +463,10 @@ def device_ms(fn, iters: int = 20, tries: int = 6):
     return None, {}
 
 
-# rows also timed by replaying a CUDA graph of their launches (graph_ms)
-GRAPH_TIMED = ("data_normal", "monomial_grams", "pack_triangles")
+# rows also timed by replaying a CUDA graph of their launches (graph_ms);
+# the stack's library call too (library_graph_ms)
+GRAPH_TIMED = ("data_normal", "monomial_grams", "pack_triangles",
+               "slab_stack", "slab_sweep")
 
 
 def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -824,30 +851,142 @@ def cmp_sweep(name):
     return cmp
 
 
+def sample_corners(g, geo, rays, spec, x_off: int, nx: int):
+    """(row y0, stack plane xl) of the lower corner of each ray's sample of
+    slab g (int64 (H, W), a slab a ray), by the plain sampler's
+    operations (tsdf._sampler)."""
+    X, Y = spec.dims
+    vsx, vsy, vsz = (torch.tensor(v, dtype=torch.float32, device=DEV)
+                     for v in spec.voxel)
+    o = geo[:3]
+    z = (g * spec.m).float() * vsz
+    H, W = spec.shape
+    if spec.mode == "general":
+        dz = rays[..., 2]
+        srel = (z - o[2]) / torch.where(dz > 1e-6, dz, 1.0)
+        px = (o[0] + rays[..., 0] * srel) / vsx
+        py = (o[1] + rays[..., 1] * srel) / vsy
+    else:
+        dzo = z - o[2]
+        px = (o[0] + rays[:W][None, :] * dzo) / vsx
+        py = (o[1] + rays[W:][:, None] * dzo) / vsy
+    x0 = tv._clip_index(torch.floor(px), X - 2)
+    y0 = tv._clip_index(torch.floor(py), Y - 2)
+    return y0.long(), (x0.long() - x_off).clamp(0, nx - 2)
+
+
+def decisive_sector_bytes(stack, geo, rays, spec, block) -> int:
+    """The bytes of the stack's 32-byte sectors that the samples deciding
+    each ray's outcome read, the least a sweep that is given the summary
+    must read: for every ray with an event (a +/- crossing, the hit, or a
+    -/+ one that ends the ray; from the plain version's record), the four
+    corners of its pair of samples, and in block mode the block's first
+    and last samples, which its record holds. A ray whose slabs the
+    summary marks reads no slab; samples beyond the stack read +1."""
+    slabs = stack.slabs
+    S, Y, nx = slabs.shape
+    x_off, lo, hi = block or (0, 0, spec.dims[0])
+    rec = tv.sweep_plain(slabs, geo, rays, spec, (x_off, lo, hi)).long()
+    ev_g, first_g, last_g = rec[0], rec[6], rec[11]
+    event = ev_g <= spec.s_pad
+    picks = [(ev_g - 1, event), (ev_g, event)]
+    if block:
+        picks += [(first_g, rec[10] != 0), (last_g, rec[15] != 0)]
+    sectors = []
+    for g, use in picks:
+        use = use & (g >= 0) & (g < S)
+        y0, xl = sample_corners(g.clamp(0, S - 1), geo, rays, spec, x_off,
+                                nx)
+        for dy in (0, 1):
+            half = ((g * Y + y0 + dy) * nx + xl)[use]
+            sectors += [half // 16, (half + 1) // 16]
+    n = int(torch.unique(torch.cat(sectors)).numel()) if sectors else 0
+    del rec, sectors
+    return 32 * n
+
+
 def sweep_case(args):
-    """The bound is its bytes: the slab stack, the rays and the pose read
+    """The bound is its bytes: the sign summary, the rays and the pose read
     once, the points and normals (or a block's 16-word records) written
-    once. The slab samples a ray reads depend on where it meets the
-    surface; the stack read once is the least any sweep reads. No PyTorch
-    call sweeps slabs for a first crossing."""
-    slabs, geo, rays, spec, block = args
+    once, and the sectors of the stack that decide the rays' outcomes
+    (`decisive_sector_bytes`): given the summary, no sweep reads fewer. No
+    PyTorch call sweeps slabs for a first crossing."""
+    stack, geo, rays, spec, block = args
     H, W = spec.shape
     out = H * W * (16 * 4 if block else 24)
-    nbytes = slabs.numel() * 2 + (geo.numel() + rays.numel()) * 4 + out
+    nbytes = (decisive_sector_bytes(*args) + stack.summary.numel()
+              + (geo.numel() + rays.numel()) * 4 + out)
     if block:
         return (args, cmp_exact("slab_sweep records"), "records exact",
                 (nbytes, 0), None)
     return (args, cmp_sweep("slab_sweep"), SWEEP_TOL, (nbytes, 0), None)
 
 
+def resolve_reads(every, s_pad: int) -> int:
+    """The record words the resolve must read: per ray and block its first
+    event's slab and its first and last samples' slabs (3); the winning
+    event's flag and values (5) where a block of the ray has one; and for
+    every pair of blocks that meet on a ray (one's last slab + 1 the
+    other's first), the two samples that judge it (2 x 4)."""
+    world, _, H, W = every.shape
+    first_g, last_g = every[:, 6], every[:, 11]
+    has_event = every[:, 0].amin(0) < s_pad + 1
+    meet = ((last_g[:, None] >= 0)
+            & (first_g[None, :] == last_g[:, None] + 1))
+    return (3 * world * H * W + 5 * int(has_event.sum())
+            + 8 * int(meet.sum()))
+
+
 def resolve_case(args):
-    """The records read once, the points, normals and straddle flags
-    written once; no PyTorch call."""
+    """The record words the resolve must read (`resolve_reads`), the pose
+    and rays read once, the points, normals and straddle flags written
+    once; no PyTorch call."""
     every, geo, rays, spec = args
     H, W = spec.shape
-    nbytes = every.numel() * 4 + (geo.numel() + rays.numel()) * 4 + H * W * 25
+    nbytes = (resolve_reads(every, spec.s_pad) * 4
+              + (geo.numel() + rays.numel()) * 4
+              + H * W * 25)
     return (args, cmp_sweep("sweep_resolve"),
             SWEEP_TOL + ", straddle flags equal", (nbytes, 0), None)
+
+
+def stack_sector_bytes(shape, m: int) -> int:
+    """The bytes of the 32-byte sectors of an (nx, Y, Z) float16 volume that
+    hold a sampled plane (z = 0, m, 2m, ...): what any stack must read."""
+    nx, Y, Z = shape
+    S = (Z - 1) // m + 1
+    starts = (np.arange(nx * Y, dtype=np.int64) * Z) % 16  # row start, halves
+    per_start = {int(r): len(np.unique((r + np.arange(S) * m) // 16))
+                 for r in np.unique(starts)}
+    return 32 * sum(per_start[int(r)] for r in starts)
+
+
+def stack_case(args):
+    """The slabs bitwise and the summary equal to the plain version's. The
+    bound is its bytes: the volume's sectors holding sampled planes read
+    once, the stack and the summary written once. The library call is the
+    stack's copy alone (tsdf.slab_stack, no summary)."""
+    tsdf, m = args
+    S = (tsdf.shape[2] - 1) // m + 1
+    nbytes = (stack_sector_bytes(tsdf.shape, m)
+              + S * tsdf.shape[1] * tsdf.shape[0] * 2
+              + int(np.prod(tv.summary_shape(S, tsdf.shape[1],
+                                             tsdf.shape[0]))))
+
+    def cmp_stack(a, b):
+        require(torch.equal(a[0].view(torch.int16), b[0].view(torch.int16)),
+                "slab_stack: the slabs differ from the plain version's")
+        require(torch.equal(a[1], b[1]),
+                "slab_stack: the summary differs from the plain version's")
+        marked = tv.marked_bricks(a[1], tsdf.shape[0])
+        CMP_EXTRA["slab_stack"] = dict(bricks=marked.numel(),
+                                       bricks_marked=int(marked.sum()))
+        print(f"slab_stack: slabs bitwise, summary equal; "
+              f"{int(marked.sum())} of {marked.numel()} bricks marked",
+              flush=True)
+        return 0.0
+    return (args, cmp_stack, "slabs bitwise, summary equal", (nbytes, 0),
+            lambda: tv.slab_stack(tsdf, m))
 
 
 # row -> its case: (args, compare(kernel_out, plain_out) -> max_abs_err,
@@ -856,7 +995,8 @@ CASES = {"pack_triangles": pack_case, "knn_gather": knn_case,
          "nn1_window_sweep": corr_case, "warp_fused": warp_case,
          "warp_fused_dlb": warp_case, "data_normal": gram_case,
          "monomial_grams": mono_case, "fetch_stencil": stencil_case,
-         "slab_sweep": sweep_case, "sweep_resolve": resolve_case}
+         "slab_sweep": sweep_case, "sweep_resolve": resolve_case,
+         "slab_stack": stack_case}
 
 
 def kernel_cases(verts, wf, fstate):
@@ -1017,6 +1157,8 @@ def work_stats(name, args) -> dict:
         st = dict(nodes_held=int(held.sum()),
                   warps=gram_cuda.gram_warps(idx.shape[0], D, mono),
                   **{k: quantiles(v[held]) for k, v in work.items()})
+    elif name == "slab_sweep":
+        st = sweep_work_stats(args)
     else:
         return {}
     print(f"kernel {name} work: {json.dumps(st)}", flush=True)
@@ -1026,6 +1168,39 @@ def work_stats(name, args) -> dict:
 # rows whose kernel must give the same bits on every launch, and the bits
 # of its plain fixed-order model
 REPEAT_REQUIRED = ("data_normal", "monomial_grams")
+
+
+def warp_max_mean(x: torch.Tensor) -> float:
+    """The mean over warps (32 consecutive rays) of the warp's largest x."""
+    n = x.numel()
+    y = torch.zeros(-(-n // 32) * 32, dtype=x.dtype, device=x.device)
+    y[:n] = x
+    return float(y.reshape(-1, 32).amax(1).double().mean())
+
+
+def sweep_work_stats(args) -> dict:
+    """What the sweep kernel's rays did on `args`, as its own counters
+    report it (sweep_cuda.sweep_work): samples computed per ray (mean, and
+    the warp's largest, mean over warps), brick layers checked, bricks and
+    samples skipped per ray, rays with an empty span of slabs; beside them
+    the samples a walk of one slab at a time takes on the same rays (up to
+    the first event; a block's: its own samples)."""
+    w = sweep_cuda.sweep_work(*args).reshape(len(sweep_cuda.WORK_FIELDS), -1)
+    f = dict(zip(sweep_cuda.WORK_FIELDS, w))
+
+    def mean(x):
+        return float(x.double().mean())
+    st = dict(rays=w.shape[1], samples_per_ray=mean(f["samples"]),
+              samples_warp_max=warp_max_mean(f["samples"]),
+              layers_checked_per_ray=mean(f["layers_checked"]),
+              bricks_skipped_per_ray=mean(f["bricks_skipped"]),
+              samples_skipped_per_ray=mean(f["samples_skipped"]),
+              empty_rays=int(f["empty"].sum()),
+              single_slab_samples_per_ray=mean(f["single_slab_samples"]),
+              single_slab_samples_warp_max=warp_max_mean(
+                  f["single_slab_samples"]))
+    del w, f
+    return st
 
 
 def repeats_bitwise(name, args, n: int = 3) -> bool:
@@ -1081,6 +1256,7 @@ def measure(name, args, compare, tol, work, library) -> dict:
     g_ms = graph_ms(lambda: kern(*args)) if name in GRAPH_TIMED else None
     plain_ms = cuda_ms(lambda: plain(*args), iters=3, warmup=1)
     lib_ms = None if library is None else cuda_ms(library, iters=5)
+    lib_g_ms = graph_ms(library) if name == "slab_stack" else None
     extra.update(work_stats(name, args))
     if name in ("warp_fused", "warp_fused_dlb"):
         extra["bound_ms_brute_force"] = warp_brute_force_ms(args)
@@ -1093,57 +1269,146 @@ def measure(name, args, compare, tol, work, library) -> dict:
           f"(events), {h_ms:.4f} ms (host), {dev_ms} ms (device), "
           f"{g_ms} ms (graph), plain "
           f"{plain_ms:.4f} ms, "
-          f"library {lib_ms} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+          f"library {lib_ms} ms (graph {lib_g_ms}), bound {b_ms:.5f} ms "
+          f"({b_by})", flush=True)
     if len(dev_kernels) > 1:
         print(f"kernel {name} device ms by kernel: {json.dumps(dev_kernels)}",
               flush=True)
     return dict(max_abs_err=err, ms=ms, host_ms=h_ms, device_ms=dev_ms,
                 device_kernels_ms=dev_kernels, graph_ms=g_ms,
                 plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+                library_ms=lib_ms, library_graph_ms=lib_g_ms, bound_ms=b_ms,
+                bound_by=b_by, **extra)
 
 
-def sweep_cases(eng):
+def sweep_cases(eng, tsdf=None, tag="", rotated=True):
     """The sweep kernel's inputs at the main paths' largest shapes, on the
-    512^3 rigid slice's frame-0 volume (the engine `eng`): the general
-    sweep (`raycast`) at 640x480 under a tilted pose (307,200 rays x 103
-    slabs); the separable sweep on raycast_rotated's virtual image at
-    margin 1.15 (744x560) under the same pose; the sharded step's separable
-    sweep at 640x480, whole and as two x-blocks with their 1-plane halo,
-    split at plane 192 (x = -0.375 m): a face that meets the surface off
-    the image's centre column, where rays cross it between two slabs (at
-    the centre column rays run parallel to the face). Returns ([(label,
-    case)], the resolve's case over the two blocks' records)."""
-    p, cfg, vol = eng.params, eng.tsdf_config, eng.vol
+    512^3 rigid slice's frame-0 volume (the engine `eng`; `tsdf` in its
+    place if given, its labels prefixed by `tag`), each stack and summary
+    from sweep_cuda.slab_stack: the general sweep (`raycast`) at 640x480
+    under a tilted pose (307,200 rays x 103 slabs); if `rotated`, the
+    separable sweep on raycast_rotated's virtual image at margin 1.15
+    (744x560) under the same pose; the sharded step's separable sweep at
+    640x480, whole and as two x-blocks with their 1-plane halo, split at
+    plane 192 (x = -0.375 m): a face that meets the surface off the image's
+    centre column, where rays cross it between two slabs (at the centre
+    column rays run parallel to the face). Returns ([(label, case)], the
+    index of the whole 640x480 separable case, the resolve's case over the
+    two blocks' records)."""
+    p, cfg = eng.params, eng.tsdf_config
+    vol = eng.vol if tsdf is None else eng.vol._replace(tsdf=tsdf)
     shape = (p.rows, p.cols)
     R, _ = se3.from_rodrigues(torch.tensor([0.02, -0.03, 0.01]),
                               torch.zeros(3))
     pose = (R.to(DEV), torch.tensor([0.01, -0.005, 0.02], device=DEV))
     Rc, t, dirs = tv.camera_rays(vol, pose, shape, p.intr)
     spec = tv.sweep_spec("general", shape, cfg)
-    out = [(f"general {shape[1]}x{shape[0]}", sweep_case((
-        tv.slab_stack(vol.tsdf, spec.m), torch.cat([t, Rc.reshape(-1)]),
-        dirs.contiguous(), spec, None)))]
-    Hv, Wv = (int(n * 1.15) // 8 * 8 + 8 for n in shape)
-    vintr = Intr(p.intr.fx, p.intr.fy, Wv / 2 - 0.5, Hv / 2 - 0.5)
-    geo, rays = tv.separable_rays(vol, tv._vol2cam_rotation_split(
-        vol, pose)[1], vintr, (Hv, Wv))
-    spec = tv.sweep_spec("separable", (Hv, Wv), cfg)
-    out.append((f"separable {Wv}x{Hv}", sweep_case((
-        tv.slab_stack(vol.tsdf, spec.m), geo, rays, spec, None))))
+    out = [(f"{tag}general {shape[1]}x{shape[0]}", sweep_case((
+        sweep_cuda.slab_stack(vol.tsdf, spec.m),
+        torch.cat([t, Rc.reshape(-1)]), dirs.contiguous(), spec, None)))]
+    if rotated:
+        Hv, Wv = (int(n * 1.15) // 8 * 8 + 8 for n in shape)
+        vintr = Intr(p.intr.fx, p.intr.fy, Wv / 2 - 0.5, Hv / 2 - 0.5)
+        geo, rays = tv.separable_rays(vol, tv._vol2cam_rotation_split(
+            vol, pose)[1], vintr, (Hv, Wv))
+        spec = tv.sweep_spec("separable", (Hv, Wv), cfg)
+        out.append((f"{tag}separable {Wv}x{Hv}", sweep_case((
+            sweep_cuda.slab_stack(vol.tsdf, spec.m), geo, rays, spec,
+            None))))
     geo, rays = tv.separable_rays(vol, eng.poses[-1], p.intr, shape)
     spec = tv.sweep_spec("separable", shape, cfg)
-    label = f"separable {shape[1]}x{shape[0]}"
-    out.append((label, sweep_case((
-        tv.slab_stack(vol.tsdf, spec.m), geo, rays, spec, None))))
+    label = f"{tag}separable {shape[1]}x{shape[0]}"
+    whole = len(out)
+    out.append((label, sweep_case((sweep_cuda.slab_stack(vol.tsdf, spec.m),
+                                   geo, rays, spec, None))))
     X, records = cfg.dims[0], []
     for lo, hi in ((0, X * 3 // 8), (X * 3 // 8, X)):
         h0, h1 = int(lo > 0), int(hi < X)
-        args = (tv.slab_stack(vol.tsdf[lo - h0:hi + h1], spec.m), geo, rays,
-                spec, (lo - h0, lo, hi))
+        args = (sweep_cuda.slab_stack(vol.tsdf[lo - h0:hi + h1], spec.m),
+                geo, rays, spec, (lo - h0, lo, hi))
         out.append((f"{label}, block [{lo}, {hi})", sweep_case(args)))
         records.append(sweep_cuda.slab_sweep(*args))
-    return out, resolve_case((torch.stack(records), geo, rays, spec))
+    return out, whole, resolve_case((torch.stack(records), geo, rays, spec))
+
+
+def broken_volumes(eng) -> dict:
+    """Two volumes that try to break the sweep's skip, made from the rigid
+    frame-0 volume (seeded): "thin", 20,000 single voxels of -0.5 on
+    sampled planes, each inside a brick the summary marks (one voxel a
+    brick; a sample next to it reads a thin negative feature); "edges", a
+    box of -0.5 (48 x 48 voxels across) behind a shell of +1, in front of
+    the spheres, whose faces lie on brick edges: its front face between
+    the last slab of a brick layer and the first of the next, its x and y
+    faces on planes 8 i (a brick's +1 plane)."""
+    cfg = eng.tsdf_config
+    m = tv.sweep_spec("general", (eng.params.rows, eng.params.cols), cfg).m
+    bg, by, bx = tv.BRICK
+    tsdf = eng.vol.tsdf
+    X, Y, Z = tsdf.shape
+    marked = tv.marked_bricks(sweep_cuda.slab_stack(tsdf, m).summary,
+                              X).nonzero().cpu().numpy()
+    rng = np.random.default_rng(13)
+    pick = marked[rng.choice(len(marked), min(20000, len(marked) // 2),
+                             replace=False)]
+    S = (Z - 1) // m + 1
+    g = np.minimum(pick[:, 0] * bg + rng.integers(0, bg, len(pick)), S - 1)
+    y = np.minimum(pick[:, 1] * by + rng.integers(0, by, len(pick)), Y - 1)
+    x = np.minimum(pick[:, 2] * bx + rng.integers(0, bx, len(pick)), X - 1)
+    thin = tsdf.clone()
+    thin[torch.as_tensor(x, device=DEV), torch.as_tensor(y, device=DEV),
+         torch.as_tensor(g * m, device=DEV)] = -0.5
+    # the box: around the voxel the centre pixel's ray hits, its front face
+    # 8 slabs before the nearest hit of the separable sweep
+    geo, rays = tv.separable_rays(eng.vol, eng.poses[-1], eng.params.intr,
+                                  (eng.params.rows, eng.params.cols))
+    spec = tv.sweep_spec("separable", (eng.params.rows, eng.params.cols), cfg)
+    pts, _ = sweep_cuda.slab_sweep(sweep_cuda.slab_stack(tsdf, spec.m), geo,
+                                   rays, spec)
+    vz = torch.tensor(cfg.voxel_size, device=DEV)
+    hit = pts[~torch.isnan(pts[..., 0])] + geo[:3]
+    near = int((hit[:, 2].min() / vz[2]).item()) // spec.m
+    gf = max(2, (near - 8) // bg * bg)
+    c = (hit.mean(0) / vz).long().tolist()
+    x0, x1 = (max(2, c[0] // bx - 3) * bx, min(X // bx - 2, c[0] // bx + 3)
+              * bx)
+    y0, y1 = (max(2, c[1] // by - 3) * by, min(Y // by - 2, c[1] // by + 3)
+              * by)
+    edges = tsdf.clone()
+    edges[x0 - 2 * bx:x1 + 2 * bx, y0 - 2 * by:y1 + 2 * by,
+          (gf - 3) * spec.m:] = 1.0
+    edges[x0:x1, y0:y1, (gf - 1) * spec.m + 1:] = -0.5
+    print(f"broken volumes: thin {len(pick)} voxels; edges box x [{x0}, "
+          f"{x1}), y [{y0}, {y1}), front face between slabs {gf - 1} and "
+          f"{gf} (layer edge)", flush=True)
+    return {"thin": thin, "edges": edges}
+
+
+def stack_cases(eng):
+    """The stack kernel's inputs: the 512^3 rigid volume whole (rigid's
+    and the app's call) and the sharded step's upper x-block with its
+    1-plane halo."""
+    cfg = eng.tsdf_config
+    m = tv.sweep_spec("general", (eng.params.rows, eng.params.cols), cfg).m
+    X = cfg.dims[0]
+    lo = X * 3 // 8
+    return [(f"{X}^3 whole", stack_case((eng.vol.tsdf, m))),
+            (f"x-block [{lo - 1}, {X})", stack_case((eng.vol.tsdf[lo - 1:],
+                                                     m)))]
+
+
+def raycast_device_ms(tsdf, case) -> dict:
+    """One raycast's device work as a whole, by torch.profiler: the stack
+    of `tsdf` with its summary and the sweep of `case` launched together,
+    the figure that shows the stack folded in or out."""
+    _, geo, rays, spec, block = case[0]
+
+    def both():
+        return sweep_cuda.slab_sweep(sweep_cuda.slab_stack(tsdf, spec.m),
+                                     geo, rays, spec, block)
+    ms, per = device_ms(both)
+    print(f"raycast (stack + sweep) {ms} ms device: {json.dumps(per)}",
+          flush=True)
+    return dict(device_ms=ms, device_kernels_ms=per)
 
 
 def kernel_phase():
@@ -1168,33 +1433,55 @@ def kernel_phase():
         row.update(level=level, shape=[H, W], radius=args[3])
         levels.append(row)
     rows["fetch_stencil"] = dict(levels[0], levels=levels[1:])
-    # the sweep row is the general sweep; the separable ones ride along
-    # under "cases", the resolve of two blocks' records under its own row
-    cases, resolve = sweep_cases(eng)
-    sweeps = []
-    for label, case in cases:
-        print(f"slab_sweep {label}", flush=True)
-        sweeps.append(dict(measure("slab_sweep", *case), case=label))
-    rows["slab_sweep"] = dict(sweeps[0], cases=sweeps[1:])
-    rows["sweep_resolve"] = dict(measure("sweep_resolve", *resolve),
-                                 case="two blocks of 640x480")
-    # the resolve of the two blocks is the whole sweep, bit for bit, with
-    # hits whose crossing pair lies across the face
-    pts, nrm, straddle = sweep_cuda.sweep_resolve(*resolve[0])
-    whole = sweep_cuda.slab_sweep(*cases[2][1][0])
-    same = (torch.equal(pts.view(torch.int32), whole[0].view(torch.int32))
-            and torch.equal(nrm.view(torch.int32),
-                            whole[1].view(torch.int32)))
-    n_straddle = int(straddle.sum())
-    print(f"sweep_resolve: two blocks bitwise the whole sweep: {same}; hits "
-          f"across the face {n_straddle}", flush=True)
-    require(same and n_straddle > 0,
-            "sweep_resolve: the blocks' resolve differs from the whole "
-            "sweep, or no hit crossed the face")
-    rows["sweep_resolve"].update(bitwise_whole_sweep=same,
-                                 hits_across_face=n_straddle)
-    del eng, cases, resolve, pts, nrm, whole
+    rows.update(sweep_phase(eng))
+    del eng
     torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_phase(eng) -> dict:
+    """The stack, sweep and resolve rows on the 512^3 rigid frame-0 volume
+    of `eng`. The stack row is the whole volume, its x-block under
+    "cases"; the sweep row is the general sweep, the separable ones and the
+    broken volumes' cases (`broken_volumes`) under "cases", the combined
+    stack + sweep device time under "raycast_device"; the resolve of each
+    volume's two blocks is the whole sweep, bit for bit (on the frame-0
+    volume with hits whose crossing pair lies across the face)."""
+    rows = {}
+    stacks = [dict(measure("slab_stack", *case), case=label)
+              for label, case in stack_cases(eng)]
+    rows["slab_stack"] = dict(stacks[0], cases=stacks[1:])
+    sweeps, resolves = [], []
+    for tag, tsdf in [("", None)] + list(broken_volumes(eng).items()):
+        tag = f"{tag} " if tag else ""
+        cases, whole, resolve = sweep_cases(eng, tsdf, tag, rotated=not tag)
+        for label, case in cases:
+            print(f"slab_sweep {label}", flush=True)
+            sweeps.append(dict(measure("slab_sweep", *case), case=label))
+        if not tag:
+            rows["raycast_device"] = {
+                label: raycast_device_ms(eng.vol.tsdf, cases[i][1])
+                for label, i in (("general", 0), ("separable", whole))}
+        row = dict(measure("sweep_resolve", *resolve),
+                   case=f"{tag}two blocks of 640x480")
+        pts, nrm, straddle = sweep_cuda.sweep_resolve(*resolve[0])
+        full = sweep_cuda.slab_sweep(*cases[whole][1][0])
+        same = (torch.equal(pts.view(torch.int32), full[0].view(torch.int32))
+                and torch.equal(nrm.view(torch.int32),
+                                full[1].view(torch.int32)))
+        n_straddle = int(straddle.sum())
+        print(f"sweep_resolve {tag.strip()}: two blocks bitwise the whole sweep: "
+              f"{same}; hits across the face {n_straddle}", flush=True)
+        require(same and (n_straddle > 0 or tag),
+                f"sweep_resolve {tag.strip()}: the blocks' resolve differs from the "
+                f"whole sweep, or no hit crossed the face")
+        row.update(bitwise_whole_sweep=same, hits_across_face=n_straddle)
+        resolves.append(row)
+        del cases, resolve, pts, nrm, full, tsdf
+        torch.cuda.empty_cache()
+    rows["slab_sweep"] = dict(sweeps[0], cases=sweeps[1:],
+                              raycast_device=rows.pop("raycast_device"))
+    rows["sweep_resolve"] = dict(resolves[0], cases=resolves[1:])
     return rows
 
 
@@ -1433,6 +1720,18 @@ class Capture:
         self.saved = []
 
 
+def arg_tensors(args) -> list:
+    """The tensors among a wrapper's arguments, a SlabStack's two in its
+    place."""
+    out = []
+    for a in args:
+        if isinstance(a, sweep_cuda.SlabStack):
+            out += list(a)
+        elif torch.is_tensor(a):
+            out.append(a)
+    return out
+
+
 class Shim:
     """A wrapper that records its calls. A wrapper counts its launches on
     its own module-level name, which is this Shim while it is installed:
@@ -1460,7 +1759,7 @@ class Shim:
         key = (name, args[6] if name == "nn1_window_sweep" else None)
         if name == "slab_sweep":  # one largest call per mode
             key = (name, args[3].mode + (" block" if args[4] else ""))
-        size = args[0].numel()
+        size = arg_tensors(args[:1])[0].numel()
         if size >= self.calls.get(key, (-1,))[0]:
             self.calls[key] = (size, args)
         return self.wrapper(*a, **kw)
@@ -1497,7 +1796,7 @@ def run_path(path: str, fn):
     for key in sorted(cap.calls, key=str):
         name = key[0]
         args = cap.calls.pop(key)[1]
-        shapes = [list(a.shape) for a in args if torch.is_tensor(a)]
+        shapes = [list(a.shape) for a in arg_tensors(args)]
         print(f"{path}: {name} at its largest call, input shapes {shapes}",
               flush=True)
         row = measure(name, *CASES[name](args))
@@ -1597,12 +1896,79 @@ def rigid_exact512_phase():
     return got
 
 
+def kernel_list(fn, iters: int = 10, tries: int = 6) -> dict:
+    """The kernels one call of fn() launches, from torch.profiler (the
+    host's activity recorded too, as utils' profile_engine records it):
+    {"kernels": [{name, calls, device_ms}] per call, the most device time
+    first, memsets and copies included; "whole": whether each kernel was
+    recorded a whole multiple of `iters` times}. The first of `tries`
+    windows where that holds, else the last window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and str(getattr(e, "device_type", "")).endswith("CUDA")]
+        rows = [dict(name=e.key[:120], calls=e.count / iters,
+                     device_ms=e.self_device_time_total / 1e3 / iters)
+                for e in evs]
+        whole = bool(evs) and all(e.count % iters == 0 for e in evs)
+        if whole:
+            break
+    return dict(kernels=sorted(rows, key=lambda r: -r["device_ms"]),
+                whole=whole)
+
+
+def raycast_kernels(eng) -> dict:
+    """The kernels inside one raycast of the rigid engine `eng` at its last
+    pose, by name with calls and device ms: as KinFu._raycast runs it (the
+    dispatch's formulation and margin), and the general sweep
+    (`tv.raycast`) of the same volume and pose; beside them tsdf.slab_stack's
+    copy alone, the stack the sweep read before csrc/slab_stack.cu."""
+    p, pose = eng.params, eng.poses[-1]
+    shape = (p.rows, p.cols)
+    before = dict(kinfu_mod.FORMULATIONS)
+    eng._raycast(pose)
+    out = {"formulation": next(k for k, v in kinfu_mod.FORMULATIONS.items()
+                               if k.startswith("raycast:")
+                               and v != before.get(k, 0)),
+           "margin": eng._raycast_margin(pose)}
+    for name, fn in (("dispatch", lambda: eng._raycast(pose)),
+                     ("general", lambda: tv.raycast(
+                         eng.vol, pose, p.intr, shape, eng.tsdf_config))):
+        got = kernel_list(fn)
+        rows = got["kernels"]
+        total = sum(r["device_ms"] for r in rows)
+        out[name] = dict(kernel_ms=total, launches=sum(r["calls"]
+                                                       for r in rows),
+                         whole=got["whole"], kernels=rows)
+        print(f"raycast kernels ({name}): {total:.4f} ms device in "
+              f"{out[name]['launches']} launches (counts whole: "
+              f"{got['whole']})", flush=True)
+        for r in rows:
+            print(f"  {r['device_ms']:.4f} ms  x{r['calls']}  {r['name']}",
+                  flush=True)
+    m = tv.sweep_spec("general", shape, eng.tsdf_config).m
+    out["stack_copy"] = kernel_list(lambda: tv.slab_stack(eng.vol.tsdf, m))
+    print(f"raycast kernels: tsdf.slab_stack's copy alone "
+          f"{json.dumps(out['stack_copy'])}", flush=True)
+    return out
+
+
 def rigid_profile_phase():
     """utils/rigid_profile's profile of the 512^3 rigid frame (4 frames
     timed, 4 profiled, after 3 warm-up frames; uncounted): the raycast
     stage's host and kernel ms per frame beside the per-ray march's
     (216.385 / 17.810 on the H100, ROADMAP H1), and the frame's wall,
-    kernel ms and idle share."""
+    kernel ms and idle share; then the kernels inside one raycast by name
+    (`raycast_kernels`)."""
     from dynfu_tpu_torch.utils.fusion_profile import profile_engine
     from dynfu_tpu_torch.utils.rigid_profile import STAGES
 
@@ -1616,6 +1982,8 @@ def rigid_profile_phase():
     print(f"rigid_profile: raycast {rc['host_ms']:.3f} ms host / "
           f"{rc['kernel_ms']:.3f} ms kernels per frame (the per-ray "
           f"march: 216.385 / 17.810, ROADMAP H1)", flush=True)
+    print("rigid_profile raycast kernels:", json.dumps(raycast_kernels(eng)),
+          flush=True)
     del eng
     torch.cuda.empty_cache()
 

@@ -202,8 +202,8 @@ def sharded_raycast(vol: tv.TsdfVolume, mesh: Mesh, X: int, camera_pose,
     lo, hi = mesh.block(X)
     geo, rays = tv.separable_rays(vol, camera_pose, intr, shape)
     spec = tv.sweep_spec("separable", shape, config)
-    rec = sweep_cuda.slab_sweep(tv.slab_stack(slab.tsdf, spec.m), geo, rays,
-                                spec, block=(lo - h0, lo, hi))
+    rec = sweep_cuda.slab_sweep(sweep_cuda.slab_stack(slab.tsdf, spec.m),
+                                geo, rays, spec, (lo - h0, lo, hi))
     pts, nrm, straddle = sweep_cuda.sweep_resolve(
         torch.stack(all_gather(rec, mesh)), geo, rays, spec)
     return pts, nrm, straddle.sum()

@@ -59,8 +59,11 @@ SIGNATURES = {
     "dynfu_data_normal": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "dynfu_data_normal_f64": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "dynfu_fetch_stencil": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "dynfu_slab_sweep": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P],
+    "dynfu_slab_stack": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P],
+    "dynfu_slab_sweep": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P],
     "dynfu_sweep_resolve": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P, _P, _P, _P],
 }

@@ -27,7 +27,9 @@ and its engines pick one by the camera pose (engine/kinfu.py `_integrate`,
   sweeps find other crossings and normals than the march.
 
 The sweeps' state machine is one CUDA kernel (volume/sweep_cuda.py,
-csrc/sweep.cu); the plain version below is what it runs on the CPU.
+csrc/sweep.cu), fed by the slab stack and its sign summary
+(csrc/slab_stack.cu); the plain versions below are what they run on the
+CPU.
 """
 
 from __future__ import annotations
@@ -629,8 +631,62 @@ def sweep_spec(mode: str, shape, config: TsdfConfig) -> SweepSpec:
 def slab_stack(tsdf: torch.Tensor, m: int) -> torch.Tensor:
     """The sampled z planes of an (X, Y, Z) tsdf as (S, Y, X) float16: one
     strided slice and one transposing copy, so that neighbouring rays read
-    neighbouring x."""
+    neighbouring x (sweep_cuda.slab_stack's plain stack)."""
     return tsdf[:, :, ::m].permute(2, 1, 0).contiguous()
+
+
+# the sign summary's brick: slabs, rows, x planes (csrc/slab_stack.cu and
+# csrc/sweep.cu hold the same)
+BRICK = (4, 8, 8)
+
+
+def brick_grid(S: int, Y: int, nx: int) -> Tuple[int, int, int]:
+    """(layers, brick rows, x bricks) of an (S, Y, nx) stack: the bricks
+    cover the slabs and the samples' lower corners (rows 0..Y - 2, planes
+    0..nx - 2)."""
+    bg, by, bx = BRICK
+    return -(-S // bg), -(-(Y - 1) // by), -(-(nx - 1) // bx)
+
+
+def summary_shape(S: int, Y: int, nx: int) -> Tuple[int, int, int]:
+    """The summary's shape: per layer and brick row, one byte for each 8 x
+    bricks (bit i of byte j is x brick 8 j + i)."""
+    L, nyb, nxb = brick_grid(S, Y, nx)
+    return L, nyb, -(-nxb // 8)
+
+
+def marked_bricks(summary: torch.Tensor, nx: int) -> torch.Tensor:
+    """The summary's bits as (layers, brick rows, x bricks) bool."""
+    nxb = -(-(nx - 1) // BRICK[2])
+    bit = torch.arange(8, dtype=torch.uint8, device=summary.device)
+    bits = (summary[..., None] >> bit) & 1
+    return bits.reshape(*summary.shape[:2], -1)[..., :nxb].bool()
+
+
+def brick_summary(slabs: torch.Tensor) -> torch.Tensor:
+    """The stack's sign summary (sweep_cuda.slab_stack's second output,
+    packed as `summary_shape` says): brick (l, j, i) is marked where every
+    value of slabs [l bg, (l + 1) bg), rows [j by, (j + 1) by] and planes
+    [i bx, (i + 1) bx] (the +1 row and plane included, as far as the stack
+    reaches) is >= 0 (not negative, not NaN), so that no sample whose lower
+    corner lies in it is negative: the free space in front of a surface
+    (+1) and the volume no camera has seen (0, `create`)."""
+    S, Y, nx = slabs.shape
+    bg, by, bx = BRICK
+    L, nyb, nxb = brick_grid(S, Y, nx)
+    pos = torch.ones((L * bg, nyb * by + 1, nxb * bx + 1), dtype=torch.bool,
+                     device=slabs.device)
+    pos[:S, :Y, :nx] = slabs >= 0
+    pos = pos.reshape(L, bg, *pos.shape[1:]).all(1)
+    pos = (pos[:, :, :nxb * bx].reshape(L, -1, nxb, bx).all(-1)
+           & pos[:, :, bx::bx])
+    pos = (pos[:, :nyb * by].reshape(L, nyb, by, nxb).all(2)
+           & pos[:, by::by])
+    packed = torch.zeros((L, nyb, summary_shape(S, Y, nx)[2] * 8),
+                         dtype=torch.uint8, device=slabs.device)
+    packed[..., :nxb] = pos.to(torch.uint8)
+    bit = torch.arange(8, dtype=torch.uint8, device=slabs.device)
+    return (packed.reshape(L, nyb, -1, 8) << bit).sum(-1, dtype=torch.uint8)
 
 
 def _sampler(geo: torch.Tensor, rays: torch.Tensor, spec: SweepSpec,
@@ -921,7 +977,7 @@ def raycast(vol: TsdfVolume, camera_pose, intr: Intr, shape: Tuple[int, int],
     normals) (H, W, 3) in the camera frame, NaN where no surface was hit."""
     R, t, dirs = camera_rays(vol, camera_pose, shape, intr)
     spec = sweep_spec("general", shape, config)
-    return sweep_cuda.slab_sweep(slab_stack(vol.tsdf, spec.m),
+    return sweep_cuda.slab_sweep(sweep_cuda.slab_stack(vol.tsdf, spec.m),
                                  torch.cat([t, R.reshape(-1)]),
                                  dirs.contiguous(), spec)
 
@@ -953,8 +1009,8 @@ def raycast_separable(vol: TsdfVolume, camera_pose, intr: Intr,
     then x). Same crossing and refinement as `raycast`."""
     geo, rays = separable_rays(vol, camera_pose, intr, shape)
     spec = sweep_spec("separable", shape, config)
-    return sweep_cuda.slab_sweep(slab_stack(vol.tsdf, spec.m), geo, rays,
-                                 spec)
+    return sweep_cuda.slab_sweep(sweep_cuda.slab_stack(vol.tsdf, spec.m),
+                                 geo, rays, spec)
 
 
 def raycast_depth(vol: TsdfVolume, camera_pose, intr: Intr,

@@ -436,6 +436,78 @@ def test_sweep_matches_jax(fn, pose):
     _hold_sweep(got, want)
 
 
+def _summary_numpy(slabs):
+    """The sign summary brick by brick, one bit a brick (bit i of byte j is
+    x brick 8 j + i): set where every value a sample with its lower corner
+    in the brick reads (the brick, its +1 row and its +1 plane) is >= 0,
+    NaN and negative values not."""
+    S, Y, nx = slabs.shape
+    bg, by, bx = ttv.BRICK
+    L, nyb, nxb = -(-S // bg), -(-(Y - 1) // by), -(-(nx - 1) // bx)
+    out = np.zeros((L, nyb, -(-nxb // 8) * 8), np.uint8)
+    for l in range(L):
+        for j in range(nyb):
+            for i in range(nxb):
+                b = slabs[l * bg:(l + 1) * bg, j * by:(j + 1) * by + 1,
+                          i * bx:(i + 1) * bx + 1]
+                out[l, j, i] = bool((b >= 0).all())
+    return np.packbits(out, axis=-1, bitorder="little")
+
+
+@pytest.mark.parametrize("volume", ["seeded", "sphere"])
+def test_slab_stack_matches_jax(volume):
+    """sweep_cuda.slab_stack's plain version (the kernel's CPU version):
+    the slabs bitwise JAX's own stack (jnp.transpose(tsdf[:, :, ::m], (2,
+    1, 0)), the source sweep's), the summary equal to a numpy one brick by
+    brick; the whole volume and an x-block with its halo. "seeded": a
+    40x48x37 volume of +1 and unseen 0 (with -0.0) at m = 3, scattered
+    single negative voxels and a NaN; "sphere": the sphere integrated into
+    64^3 at the general sweep's m."""
+    if volume == "seeded":
+        rng = np.random.default_rng(5)
+        t = np.where(rng.random((40, 48, 37)) < 0.6, 1.0, 0.0)
+        t[rng.random(t.shape) < 0.05] = -0.0
+        neg = rng.integers(0, t.shape, (30, 3))
+        t[neg[:, 0], neg[:, 1], neg[:, 2] // 3 * 3] = -0.25
+        t[7, 9, 12] = np.nan
+        tsdf, m = t.astype(np.float16), 3
+    else:
+        _, tcfg, jv, _ = _swept_volume()
+        tsdf = np.asarray(jv.tsdf)
+        m = ttv.sweep_spec("general", (H, W), tcfg).m
+    for lo, hi in ((0, tsdf.shape[0]), (15, tsdf.shape[0])):
+        part = tsdf[lo:hi]
+        slabs, summary = sweep_cuda.slab_stack(torch.as_tensor(part), m)
+        want = np.asarray(jnp.transpose(jnp.asarray(part)[:, :, ::m],
+                                        (2, 1, 0)))
+        np.testing.assert_array_equal(slabs.numpy().view(np.int16),
+                                      want.view(np.int16))
+        np.testing.assert_array_equal(summary.numpy(), _summary_numpy(want))
+        marked = ttv.marked_bricks(summary, part.shape[0])
+        assert 0 < marked.sum() < marked.numel()
+
+
+def test_slab_sweep_refuses_another_stacks_summary():
+    """The sweep's kernel skips by the summary, so its plain version holds
+    each caller to passing the summary of the stack it sweeps: the 64^3
+    sphere's stack with its own summary sweeps; with every brick marked,
+    or with the summary of the same volume one plane further in x, it
+    raises."""
+    _, tcfg, _, tv = _swept_volume()
+    spec = ttv.sweep_spec("separable", (H, W), tcfg)
+    geo, rays = ttv.separable_rays(tv, POSES["translated"], TIntr(*INTR),
+                                   (H, W))
+    stack = sweep_cuda.slab_stack(tv.tsdf, spec.m)
+    pts, _ = sweep_cuda.slab_sweep(stack, geo, rays, spec)
+    assert (~torch.isnan(pts[..., 0])).sum() > 100
+    moved = sweep_cuda.slab_stack(torch.roll(tv.tsdf, 1, 0), spec.m)
+    for summary in (torch.full_like(stack.summary, 255), moved.summary):
+        assert not torch.equal(summary, stack.summary)
+        with pytest.raises(ValueError, match="not the stack's"):
+            sweep_cuda.slab_sweep(stack._replace(summary=summary), geo,
+                                  rays, spec)
+
+
 @pytest.mark.parametrize("tilt,margin", [(0.05, 1.15), (0.35, 1.6)])
 def test_raycast_rotated_matches_jax(tilt, margin):
     """raycast_rotated (the separable sweep on the virtual image, the
@@ -1141,15 +1213,18 @@ def dev():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("thin", [False, True])
 @pytest.mark.parametrize("mode", ["general", "separable"])
-def test_sweep_kernel_equals_plain(dev, mode):
+def test_sweep_kernel_equals_plain(dev, mode, thin):
     """The slab sweep kernel against its plain version on the card at odd
     shapes (61x83 rays; a 48x40x56 volume at m = 2, so that the slabs are
     padded) under a tilted pose (general) or a translated one
-    (separable): the same hit masks and NaN positions, points within
-    1e-6 m, normals within 1e-5; the records of three x-blocks (each with
-    its 1-plane halo) exactly the plain version's, and their resolve the
-    whole sweep's, bit for bit."""
+    (separable), with `thin` 60 seeded single voxels of -0.25 on sampled
+    planes (features the brick summary must stop the skip for): the same
+    hit masks and NaN positions, points within 1e-6 m, normals within
+    1e-5; the records of three x-blocks (each with its 1-plane halo)
+    exactly the plain version's, and their resolve the whole sweep's, bit
+    for bit."""
     shape = (61, 83)
     cfg = ttv.TsdfConfig(dims=(48, 40, 56), size=(1.2, 1.0, 1.4),
                          trunc_dist=0.06)
@@ -1160,6 +1235,9 @@ def test_sweep_kernel_equals_plain(dev, mode):
                      device="cpu")
     vol = ttv.integrate(vol, timg.compute_dists(torch.as_tensor(
         d.astype(np.int32)), intr), IDENT, intr, cfg)
+    if thin:
+        idx = np.random.default_rng(0).integers(0, (48, 40, 28), (60, 3))
+        vol.tsdf[idx[:, 0], idx[:, 1], idx[:, 2] * 2] = -0.25
     vol = ttv.TsdfVolume(*(t.to(dev) for t in vol))
     if mode == "general":
         R, t, rays = ttv.camera_rays(vol, (_rot(9.0), np.asarray(
@@ -1170,9 +1248,11 @@ def test_sweep_kernel_equals_plain(dev, mode):
                                         shape)
     spec = ttv.sweep_spec(mode, shape, cfg)
     assert spec.m == 2 and spec.s_pad > (56 - 1) // 2 + 1
-    slabs = ttv.slab_stack(vol.tsdf, spec.m)
-    got = sweep_cuda.slab_sweep(slabs, geo, rays, spec)
-    want = sweep_cuda.slab_sweep_plain(slabs, geo, rays, spec)
+    stack = sweep_cuda.slab_stack(vol.tsdf, spec.m)
+    marked = ttv.marked_bricks(stack.summary, stack.slabs.shape[2])
+    assert 0 < int(marked.sum()) < marked.numel()
+    got = sweep_cuda.slab_sweep(stack, geo, rays, spec)
+    want = sweep_cuda.slab_sweep_plain(stack, geo, rays, spec)
     hit = ~torch.isnan(want[0][..., 0])
     assert hit.sum() > 1000
     for g, w, tol in zip(got, want, (1e-6, 1e-5)):
@@ -1181,8 +1261,8 @@ def test_sweep_kernel_equals_plain(dev, mode):
     records = []
     for lo, hi in ((0, 16), (16, 31), (31, 48)):
         h0, h1 = int(lo > 0), int(hi < 48)
-        args = (ttv.slab_stack(vol.tsdf[lo - h0:hi + h1], spec.m), geo, rays,
-                spec, (lo - h0, lo, hi))
+        args = (sweep_cuda.slab_stack(vol.tsdf[lo - h0:hi + h1], spec.m),
+                geo, rays, spec, (lo - h0, lo, hi))
         records.append(sweep_cuda.slab_sweep(*args))
         assert torch.equal(records[-1], sweep_cuda.slab_sweep_plain(*args))
     p, n, straddle = sweep_cuda.sweep_resolve(torch.stack(records), geo,
@@ -1190,6 +1270,30 @@ def test_sweep_kernel_equals_plain(dev, mode):
     for a, b in ((p, got[0]), (n, got[1])):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert int(straddle.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,m", [((48, 40, 56), 2), ((70, 33, 129), 5),
+                                    ((130, 72, 64), 1)])
+def test_slab_stack_kernel_equals_plain(dev, dims, m):
+    """The stack kernel against its plain version on the card: the slabs
+    bitwise, the summary equal, on seeded volumes of +1, 0 and -0.0 with
+    scattered negative voxels and a NaN, at odd shapes (partial x tiles,
+    brick rows and slab passes) and on an x-block from plane 17."""
+    rng = np.random.default_rng(11)
+    t = np.where(rng.random(dims) < 0.7, 1.0, 0.0)
+    t[rng.random(dims) < 0.02] = -0.0
+    neg = rng.integers(0, dims, (50, 3))
+    t[neg[:, 0], neg[:, 1], neg[:, 2] // m * m] = -0.5
+    t[3, 4, 0] = np.nan
+    tsdf = torch.as_tensor(t.astype(np.float16), device=dev)
+    for part in (tsdf, tsdf[17:]):
+        got = sweep_cuda.slab_stack(part, m)
+        want = sweep_cuda.slab_stack_plain(part, m)
+        assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+        assert torch.equal(got[1], want[1])
+        marked = ttv.marked_bricks(want[1], part.shape[0])
+        assert 0 < int(marked.sum()) < marked.numel()
 
 
 @pytest.mark.cuda
