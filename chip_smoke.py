@@ -169,10 +169,43 @@
      second launch resolves the gathered records. The step's warp, k-NN,
      partial data Gram, block sweep and resolve are held against their
      plain versions at its largest calls (153,600 rows a rank).
+   - the umbrella's full scene 512^3 (umbrella_full512):
+     run_umbrella_benchmark(512, foreground=False); corr_dropped printed
+     beside the JAX package's 9034 on a TPU, no bound (its correspondence
+     searches the 65,536-vertex canonical: the tile placement, as the
+     source's dispatch picks);
+   - the non-strict sharded frame 128^3 (dist_nonstrict):
+     dist.engine_spmd.sharded_engine_frame(strict_parity=False) from fixed
+     mode's frame 0 over frames 1-4 with the pose held, the GN solve with
+     the separable integrate and DLB with the SE(3) solve and the rotated
+     integrate, unsharded and on 1 rank (uncounted) and on 2 ranks (rank 0
+     counted): every frame bitwise the single rank's, and the single
+     rank's bitwise the unsharded frame's (the volume, the warped
+     canonical and its normals, the live set and its normals, the node
+     state, the drops and the solve's stats);
+   - the correspondence beyond the source's kernel envelope
+     (xwindow_block): knn.nn1_gather_xwindow at P = Q = 2^19 sphere points
+     with the 22-column payload and the 512^3 parity preset's tiers, and
+     again with blocks of 1000 queries (padded to 1024-query tiles): the
+     block placement through the 1-NN kernel, and, uncounted, the rows it
+     certifies equal to the tile placement's where both certify.
    Every path prints the formulations its engines ran
-   (kinfu.FORMULATIONS); across rigid, rigid_exact512, cli512 and
-   cli_rigid512 the separable, rotated and general sweeps and the rotated
-   integrate must each have run at 512^3.
+   (kinfu.FORMULATIONS) and its correspondences' placements (only
+   xwindow_block may take the block placement); across rigid,
+   rigid_exact512, cli512 and cli_rigid512 the separable, rotated and
+   general sweeps and the rotated integrate must each have run at 512^3;
+6. the rest of the source's public surface: the 1-NN kernel at the block
+   placement (corr_block: P = Q = 2^19 sorted sphere points, one block of
+   4096 a window and a tile, F = 3 and 33; rows and certificates equal to
+   the plain version's; timed; kept in the nn1 row's "block_placement"),
+   the k-NN functions of ops/knn at 262,144 queries (knn_variants:
+   knn_blocked and nn1_blocked against 1024 nodes, nn1_gather_sorted and
+   nn1_gather over 262,144 points with a 22-column payload; each decided
+   selection equal to a float64 brute force on a 4096-query sample, the
+   distances within 1e-6 of |q|^2 + |p|^2; ms), and the parity 512^3
+   frame's edge stage from the integrate's bit planes (bitplanes512: the
+   vertices, count and drops bitwise the stage that reads the volume;
+   both stages' and both integrates' ms).
 
 Prints each phase's seconds, the kernels' JSON line, the card's line, then
 as its last line the device JSON. Any failed check raises, and the script
@@ -207,15 +240,18 @@ if kernels.CSRC.parents[1] != Path(__file__).resolve().parent:
 
 from dynfu_tpu_torch.core import dualquat as dq  # noqa: E402
 from dynfu_tpu_torch.core import se3  # noqa: E402
-from dynfu_tpu_torch.dist import runtime, shard_gram, spmd  # noqa: E402
+from dynfu_tpu_torch.dist import (engine_spmd, runtime,  # noqa: E402
+                                  shard_gram, spmd)
 from dynfu_tpu_torch.dist.driver import ShardedDynFusion  # noqa: E402
 from dynfu_tpu_torch.dist.engine_spmd import sharding_overhead  # noqa: E402
 from dynfu_tpu_torch.core.camera import Intr  # noqa: E402
+from dynfu_tpu_torch.engine import dynfusion as dyn  # noqa: E402
 from dynfu_tpu_torch.engine import kinfu as kinfu_mod  # noqa: E402
 from dynfu_tpu_torch.engine.dynfusion import DynFusion  # noqa: E402
 from dynfu_tpu_torch.engine.kinfu import KinFu  # noqa: E402
 from dynfu_tpu_torch.engine.params import KinFuParams  # noqa: E402
-from dynfu_tpu_torch.mesh import mc_cuda  # noqa: E402
+from dynfu_tpu_torch.mesh import edges, mc_cuda  # noqa: E402
+from dynfu_tpu_torch.ops import imgproc  # noqa: E402
 from dynfu_tpu_torch.ops import (compaction, corr_cuda, knn,  # noqa: E402
                                  knn_cuda, stencil_cuda, warp_cuda)
 from dynfu_tpu_torch.rigid import icp  # noqa: E402
@@ -378,12 +414,44 @@ PATHS = {
                        "monomial_grams"),
     "dist_step512": ("knn_gather", "warp_fused", "data_normal",
                      "slab_stack", "slab_sweep", "sweep_resolve"),
+    "umbrella_full512": ("pack_triangles", "knn_gather", "nn1_window_sweep",
+                         "warp_fused", "data_normal"),
+    "xwindow_block": ("nn1_window_sweep",),
+    "dist_nonstrict": ("pack_triangles", "knn_gather", "nn1_window_sweep",
+                       "warp_fused", "warp_fused_dlb", "data_normal",
+                       "monomial_grams"),
 }
+# the paths whose correspondence takes the block placement (beyond the
+# source's kernel envelope, knn.tile_placement); every other path must take
+# the tile placement only
+BLOCK_PATHS = ("xwindow_block",)
 # the 512^3 paths whose engines' formulations are counted
 # (kinfu.FORMULATIONS): together they must run the source's separable,
 # rotated and general sweeps and its rotated integrate
 FORMULATION_PATHS = ("rigid", "rigid_exact512", "cli512", "cli_rigid512")
 FORMULATIONS = {}  # path -> {formulation: calls}
+PLACEMENTS = {}  # path -> {correspondence placement: calls}
+
+
+class Placements:
+    """Around a main path: counts the correspondence's placements, "tile"
+    or "block", as knn.nn1_gather_xwindow picks them (knn.tile_placement,
+    which it calls by its module-level name, is wrapped)."""
+
+    def __enter__(self):
+        self.counts = {}
+        self.saved = knn.tile_placement
+
+        def record(P: int, F: int) -> bool:
+            tile = self.saved(P, F)
+            key = "tile" if tile else "block"
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return tile
+        knn.tile_placement = record
+        return self
+
+    def __exit__(self, *exc):
+        knn.tile_placement = self.saved
 
 
 def launches(name: str) -> int:
@@ -1775,17 +1843,23 @@ def run_path(path: str, fn):
     hold every kernel the path launched against its plain version at the
     path's own largest call (these launches come after the counts are
     read). Returns (result, launches per kernel)."""
-    with Capture() as cap:
+    with Capture() as cap, Placements() as placed:
         reset_counters()
         kinfu_mod.FORMULATIONS.clear()
         res = fn()
         got = {n: launches(n) for n in KERNELS}
         plain = plain_calls()
         FORMULATIONS[path] = dict(kinfu_mod.FORMULATIONS)
+        PLACEMENTS[path] = placed.counts
     print(f"{path}:", json.dumps(res), flush=True)
     print(f"{path} launches:", json.dumps(got), flush=True)
     print(f"{path} formulations (engine calls):",
           json.dumps(FORMULATIONS[path]), flush=True)
+    print(f"{path} correspondence placements (calls; the source's envelope "
+          f"{knn.TILE_MAX_POINTS} points, {knn.TILE_MAX_COLUMNS} columns):",
+          json.dumps(PLACEMENTS[path]), flush=True)
+    require(path in BLOCK_PATHS or not PLACEMENTS[path].get("block"),
+            f"{path}: a correspondence beyond the tile placement's envelope")
     require(all(got[n] > 0 for n in PATHS[path]),
             f"a kernel never launched on the {path} path: {got}")
     require(not any(plain.values()),
@@ -2801,6 +2875,437 @@ def dist_step512_phase():
     return got
 
 
+# --- the rest of the source's public surface ---------------------------------
+
+CORR_BLOCK = 4096  # nn1_gather_xwindow's block (the engine's)
+CORR_WB = 1  # DynFuParams.corr_window_blocks
+CORR_BLOCK_P = 1 << 19  # beyond the source's envelope of 270,336 points
+
+
+def _corr_block_scene(rng, P: int = CORR_BLOCK_P):
+    """P points on a 0.5 m sphere and queries 2 mm off them."""
+    u = rng.normal(size=(P, 3))
+    pts = (0.5 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(
+        np.float32)
+    qs = (pts + rng.normal(0, 0.002, pts.shape)).astype(np.float32)
+    return pts, qs
+
+
+def corr_block_phase() -> list:
+    """The 1-NN kernel at the block placement (knn.block_placement, the
+    source's XLA path beyond its kernel's envelope): P = Q = 524,288 points
+    on a 0.5 m sphere, sorted along x, the queries 2 mm off, one window of
+    DynFuParams.corr_window_blocks block(s) of 4096 points per block of
+    4096 queries, fetching the points (F = 3) and a 33-column payload; the
+    kernel against its plain version (rows and certificates equal), timed
+    beside row 3's tile placement."""
+    pts, qs = _corr_block_scene(np.random.default_rng(1))
+    pts, qs = (a[np.argsort(a[:, 0], kind="stable")] for a in (pts, qs))
+    P = pts.shape[0]
+    qsP, psP, lo, pre, suf = knn.block_placement(
+        torch.as_tensor(qs, device=DEV), torch.as_tensor(pts, device=DEV),
+        CORR_WB, CORR_BLOCK, False)
+    lo_el = (lo * CORR_BLOCK).to(torch.int32)
+    W = CORR_WB * CORR_BLOCK
+    rows = []
+    for F in (3, 33):
+        pay = psP if F == 3 else torch.cat([
+            torch.rand((P, F), device=DEV),
+            torch.zeros((psP.shape[0] - P, F), device=DEV)])
+        args = (qsP, psP, lo_el, pre, suf, CORR_BLOCK, W, pay.contiguous())
+        exact = corr_cuda.nn1_window_sweep(*args)[1]
+        print(f"corr_block: P = Q = {P}, F = {F}, tile {CORR_BLOCK} queries, "
+              f"window {W} points, certified {int(exact.sum())} of {P}",
+              flush=True)
+        row = measure("nn1_window_sweep", *corr_case(args))
+        rows.append(dict(row, F=F, tq=CORR_BLOCK, window=W,
+                         certified=int(exact.sum())))
+    return rows
+
+
+# a query block that is no multiple of the 1-NN kernel's 256-query tiles
+ODD_BLOCK = 1000
+
+
+def xwindow_block_phase():
+    """knn.nn1_gather_xwindow beyond the source's envelope: P = Q = 524,288
+    (the points shuffled, the queries in x-major order by 512^3 voxel
+    planes over 3 m, as an extraction emits them), the 22-column payload,
+    the 512^3 parity preset's tiers (escalate 8192, rescue 2048, one-block
+    windows), and again with blocks of ODD_BLOCK queries, which the sweep
+    pads to its 256-query tiles. The block placement must run, through the
+    kernel (no plain version on the card, for either block); then,
+    uncounted, the same call at the tile placement (the envelope raised):
+    every query certified by both fetches the same row (the true 1-NN, the
+    same tie rule). The certified counts are printed, not bounded (a
+    synthetic full sphere; the tiers' capacities are the preset's)."""
+    rng = np.random.default_rng(4)
+    pts, qs = _corr_block_scene(rng)
+    qs = qs[np.lexsort((rng.random(qs.shape[0]),
+                        np.floor(qs[:, 0] / (3.0 / 512))))]
+    pts = pts[rng.permutation(pts.shape[0])]
+    P = pts.shape[0]
+    p_t, q_t = (torch.as_tensor(a, device=DEV) for a in (pts, qs))
+    vals = torch.rand((P, 22), device=DEV)
+    dp = bench_params(512)
+    kw = dict(rescue=dp.corr_rescue, escalate=dp.corr_escalate,
+              window_blocks=dp.corr_window_blocks)
+
+    def run():
+        out, exact = knn.nn1_gather_xwindow(q_t, p_t, vals, **kw)
+        odd = knn.nn1_gather_xwindow(q_t, p_t, vals, **dict(
+            kw, block=ODD_BLOCK))
+        torch.cuda.synchronize()
+        run.got = (out, exact), odd
+        return {"P": P, "Q": P, "F": 22, "certified": int(exact.sum()),
+                f"certified_block{ODD_BLOCK}": int(odd[1].sum())}
+    res, got = run_path("xwindow_block", run)
+    (out_b, ex_b), (out_o, ex_o) = run.got
+    saved = knn.TILE_MAX_POINTS
+    knn.TILE_MAX_POINTS = P
+    try:
+        out_t, ex_t = knn.nn1_gather_xwindow(q_t, p_t, vals, **kw)
+    finally:
+        knn.TILE_MAX_POINTS = saved
+    both = ex_b & ex_t
+    same = bool(torch.equal(out_b[both], out_t[both]))
+    both_o = ex_o & ex_t
+    same_o = bool(torch.equal(out_o[both_o], out_t[both_o]))
+    print(f"xwindow_block: blocks of {ODD_BLOCK} queries (tiles of "
+          f"{-(-ODD_BLOCK // 256) * 256}): certified {int(ex_o.sum())}; rows "
+          f"of the {int(both_o.sum())} certified with the tile placement "
+          f"equal: {same_o}", flush=True)
+    print(f"xwindow_block: certified {int(ex_b.sum())} of {P} at the block "
+          f"placement, {int(ex_t.sum())} at the tile placement; rows of the "
+          f"{int(both.sum())} certified by both equal: {same}; placements "
+          f"{PLACEMENTS['xwindow_block']}", flush=True)
+    require(PLACEMENTS["xwindow_block"] == {"block": 2},
+            f"xwindow_block: placements {PLACEMENTS['xwindow_block']}")
+    require(same and int(both.sum()) > 0, "xwindow_block: a certified row "
+            "differs from the tile placement's")
+    require(same_o and int(both_o.sum()) > 0, f"xwindow_block: blocks of "
+            f"{ODD_BLOCK}: a certified row differs from the tile placement's")
+    return got
+
+
+# the umbrella's full scene (foreground=False): JAX's corr_dropped on a TPU
+# (RESULTS.md:194) and the card's on the tile placement before the block
+# placement existed. Its correspondence searches the 65,536-vertex warped
+# canonical (the 518,602 live vertices are the queries), inside the
+# source's envelope: the source ran its kernel there
+JAX_UMBRELLA_FULL_DROPPED = 9034
+CARD_UMBRELLA_FULL_DROPPED = 9810
+
+
+def umbrella_full512_phase():
+    """run_umbrella_benchmark(512, foreground=False): the whole scene is
+    tracked. corr_dropped is printed beside JAX's on a TPU, unbounded
+    (another chip's float32 roundoff through 11 frames), with the
+    correspondence's placement (the tile placement, as the source's
+    dispatch picks for its points)."""
+    res, got = run_path("umbrella_full512", lambda: run_umbrella_benchmark(
+        512, foreground=False, device=DEV))
+    placed = PLACEMENTS["umbrella_full512"]
+    print(f"umbrella_full512: corr_dropped {res['corr_dropped']} (the JAX "
+          f"package on a TPU: {JAX_UMBRELLA_FULL_DROPPED}; the card before "
+          f"the block placement existed: {CARD_UMBRELLA_FULL_DROPPED}), "
+          f"mc_dropped {res['mc_dropped']}, "
+          f"median / p90 visible error {res['median_visible_err_mm']} / "
+          f"{res['p90_visible_err_mm']} mm over {res['coverage_px']} px, "
+          f"tracked vertices {res['tracked_vertices']}, live vertices "
+          f"{res['live_vertices']}, nodes {res['nodes']}, frame_ms "
+          f"{res['frame_ms']}; correspondence placements {placed}, 1-NN "
+          f"kernel launches {got['nn1_window_sweep']}", flush=True)
+    require(np.isfinite(res["median_visible_err_mm"]),
+            "umbrella_full512: no visible error")
+    return got
+
+
+KNN_Q = 1 << 18  # the parity 512^3 live set's size
+KNN_SAMPLE = 4096
+
+
+def _f64_nearest(q, p, mask=None, k: int = 2, chunk: int = 256):
+    """Float64 brute force on the card: (d (S, k+1), idx (S, k+1)) the k+1
+    smallest squared distances of each query and their points."""
+    q64, p64 = q.double(), p.double()
+    ds, js = [], []
+    for i in range(0, q64.shape[0], chunk):
+        d = ((q64[i:i + chunk, None, :] - p64[None]) ** 2).sum(-1)
+        if mask is not None:
+            d = torch.where(mask[None], d, torch.inf)
+        v, j = torch.topk(d, k + 1, dim=1, largest=False)
+        ds.append(v)
+        js.append(j)
+    return torch.cat(ds), torch.cat(js)
+
+
+def _roundoff(q, p_sel, center=None):
+    """The float32 distance forms' bound: 1e-6 of |q|^2 + |p|^2, in the
+    coordinates the function computes in (centred on `center`)."""
+    c = 0.0 if center is None else center.double()
+    return 1e-6 * (((q.double() - c) ** 2).sum(-1)
+                   + ((p_sel.double() - c) ** 2).sum(-1))
+
+
+def knn_variants_phase() -> dict:
+    """ops/knn's k-NN functions on the card at the engine's sizes: k = 8 of
+    1024 nodes for 262,144 queries (knn_blocked, nn1_blocked), and the 1-NN
+    fetches over 262,144 surface points with the 22-column payload
+    (nn1_gather_sorted, nn1_gather). Each is checked on a 4096-query
+    sample against a float64 brute force on the card: its selections are
+    the exact ones wherever the exact order is decided by more than the
+    float32 forms' roundoff (1e-6 of |q|^2 + |p|^2, in the coordinates the
+    function computes in: the 1-NN fetches centre on the cloud), and every
+    distance it returns lies within that bound of the exact distance of its
+    pick, which lies within it of the exact minimum. ms by CUDA events."""
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=(KNN_Q, 3))
+    surf = (0.5 * u / np.linalg.norm(u, axis=1, keepdims=True)
+            + np.asarray([1.5, 1.5, 1.0])).astype(np.float32)
+    pts = torch.as_tensor(surf, device=DEV)
+    qs = pts[torch.randperm(KNN_Q, device=DEV)] + 0.003 * torch.randn(
+        (KNN_Q, 3), device=DEV)
+    nodes = pts[torch.randperm(KNN_Q, device=DEV)[:1024]].contiguous()
+    nmask = torch.rand(1024, device=DEV) > 0.05
+    pmask = torch.rand(KNN_Q, device=DEV) > 0.02
+    payload = torch.rand((KNN_Q, 22), device=DEV)
+    sample = torch.randperm(KNN_Q, device=DEV)[:KNN_SAMPLE]
+    qsam = qs[sample]
+    out = {}
+
+    def check(name, picks, dists, ref_p, ref_mask, k, center=None):
+        d64, j64 = _f64_nearest(qsam, ref_p, ref_mask, k)
+        tol = _roundoff(qsam[:, None, :].expand(-1, k, -1), ref_p[picks],
+                        center)
+        d_pick = ((qsam[:, None, :].double()
+                   - ref_p[picks].double()) ** 2).sum(-1)
+        decided = (d64[:, 1:] - d64[:, :-1]) > 2 * _roundoff(
+            qsam[:, None, :].expand(-1, k, -1), ref_p[j64[:, :-1]], center)
+        decided = torch.cumprod(decided.to(torch.int8), 1).bool()
+        same = (picks == j64[:, :k]) | ~decided
+        near = (d_pick - d64[:, :k]).abs() <= 2 * tol
+        err = None
+        if dists is not None:
+            err = float(((dists.double() - d_pick).abs() / tol).max())
+            require(err <= 1.0, f"knn_variants {name}: a distance beyond "
+                    "the roundoff bound")
+        require(bool(same.all()) and bool(near.all()),
+                f"knn_variants {name}: a selection differs from the float64 "
+                f"brute force ({int((~same).sum())} decided picks, "
+                f"{int((~near).sum())} beyond the bound)")
+        return dict(decided_picks=int(decided.sum()),
+                    picks=int(decided.numel()),
+                    max_dist_err_over_bound=err)
+
+    for name, fn, k in (
+            ("knn_blocked", lambda: knn.knn_blocked(qs, nodes, 8, nmask), 8),
+            ("nn1_blocked", lambda: knn.nn1_blocked(qs, nodes, nmask), 1)):
+        idx, sqd = fn()
+        idx, sqd = idx.reshape(KNN_Q, k), sqd.reshape(KNN_Q, k)
+        row = check(name, idx[sample], sqd[sample], nodes, nmask, k)
+        out[name] = dict(row, ms=cuda_ms(fn, iters=5, warmup=1), Q=KNN_Q,
+                         D=1024, k=k)
+    center = pts.mean(0)  # the 1-NN fetches' centring
+    idx, vals = knn.nn1_gather(qs, pts, payload, pmask)
+    row = check("nn1_gather", idx[sample, None], None, pts, pmask, 1, center)
+    require(torch.equal(vals, payload[idx]), "nn1_gather: rows not fetched")
+    out["nn1_gather"] = dict(row, ms=cuda_ms(
+        lambda: knn.nn1_gather(qs, pts, payload, pmask), iters=3, warmup=1),
+        Q=KNN_Q, P=KNN_Q, F=22)
+    vals, exact = knn.nn1_gather_sorted(qs, pts, payload, pmask)
+    d64, j64 = _f64_nearest(qsam, pts, pmask, 1)
+    ok = exact[sample] & ((d64[:, 1] - d64[:, 0])
+                          > 2 * _roundoff(qsam, pts[j64[:, 0]], center))
+    require(bool((vals[sample][ok] == payload[j64[ok, 0]]).all()),
+            "nn1_gather_sorted: a certified row is not the nearest's")
+    out["nn1_gather_sorted"] = dict(
+        certified=int(exact.sum()), decided_sample=int(ok.sum()),
+        ms=cuda_ms(lambda: knn.nn1_gather_sorted(qs, pts, payload, pmask),
+                   iters=3, warmup=1), Q=KNN_Q, P=KNN_Q, F=22)
+    print("knn_variants:", json.dumps(out), flush=True)
+    require(out["nn1_gather_sorted"]["certified"] > KNN_Q // 2,
+            "nn1_gather_sorted certified less than half of its queries")
+    require(all(r.get("decided_picks", r.get("decided_sample", 0))
+                > KNN_SAMPLE // 2 for r in out.values()),
+            "knn_variants: fewer than half the sample's picks decided")
+    return out
+
+
+def bitplanes512_phase() -> dict:
+    """The parity 512^3 frame's integrate and edge stage, the edges read
+    from the volume and from the planes integrate_separable emits: the
+    vertices, count and drops bitwise; each stage's ms by CUDA events."""
+    dp = bench_params(512)
+    eng = DynFusion(dp, device=DEV)
+    eng(bench_frame(0))
+    intr, cfg, pose = eng.params.intr, eng.tsdf_config, eng.poses[-1]
+    dists = imgproc.compute_dists(torch.as_tensor(
+        bench_frame(1).astype(np.int32), device=DEV), intr)
+    vol, planes = tv.integrate_separable(eng.vol, dists, pose, intr, cfg,
+                                         fresh=True, emit_bitplanes=True)
+    kw = dict(max_edges=dp.max_edge_verts or dp.max_vertices // 2,
+              convention="center",
+              col_budget=dp.edge_col_budget or dp.mc_col_budget)
+    want = edges.isosurface_edge_vertices(vol, cfg, **kw)
+    got = edges.isosurface_edge_vertices(vol, cfg, bitplanes=planes, **kw)
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+    out = {
+        "n_edges": int(want[1]), "dropped": int(want[2]), "bitwise": same,
+        "integrate_ms": cuda_ms(lambda: tv.integrate_separable(
+            vol, dists, pose, intr, cfg, fresh=True), iters=5, warmup=1),
+        "integrate_emit_ms": cuda_ms(lambda: tv.integrate_separable(
+            vol, dists, pose, intr, cfg, fresh=True, emit_bitplanes=True),
+            iters=5, warmup=1),
+        "edges_volume_ms": cuda_ms(lambda: edges.isosurface_edge_vertices(
+            vol, cfg, **kw), iters=5, warmup=1),
+        "edges_planes_ms": cuda_ms(lambda: edges.isosurface_edge_vertices(
+            vol, cfg, bitplanes=planes, **kw), iters=5, warmup=1)}
+    print("bitplanes512:", json.dumps(out), flush=True)
+    require(same, "bitplanes512: the edges from the planes differ")
+    require(out["n_edges"] > 0, "bitplanes512: no edge vertices")
+    del eng, vol, planes
+    torch.cuda.empty_cache()
+    return out
+
+
+NONSTRICT_FRAMES = 4
+# the non-strict sharded frame's variants: (DynFuParams changes, integrate)
+NONSTRICT = {"gn": ({}, "separable"),
+             "se3": (dict(solver_rotations=True), "rotated")}
+
+
+def _nonstrict_state() -> dict:
+    """Fixed mode's frame 0 at bench_params(128) on the moving sphere, on
+    the host: the volume, warp field, canonical, multiplicities and pose
+    the non-strict frames start from."""
+    eng = DynFusion(bench_params(128), device=DEV, mode="fixed")
+    eng(bench_frame(0))
+    c = eng.canonical
+    st = dict(vol=tuple(t.cpu() for t in eng.vol),
+              wf=tuple(t.cpu() for t in eng.warpfield),
+              canonical=tuple(t.cpu() for t in (c.vertices, c.normals,
+                                                 c.mask)),
+              mult=(None if eng.canonical_mult is None
+                    else eng.canonical_mult.cpu()),
+              pose=tuple(torch.as_tensor(t).cpu() for t in eng.poses[-1]),
+              intr=eng.params.intr, cfg=eng.tsdf_config)
+    del eng
+    return st
+
+
+def _nonstrict_frames(st, variant: str, mesh=None,
+                      unsharded: bool = False) -> dict:
+    """sharded_engine_frame(strict_parity=False) over frames
+    1..NONSTRICT_FRAMES on `mesh` (the process group's when None), the pose
+    held: per frame, on rank 0, the whole volume, the warped canonical and
+    its normals, the live set and its normals, the DQs, the node count, the
+    drops and the solve's stats on the host; every rank's launches. With
+    `unsharded` (a 1-rank mesh) the single card's own non-strict
+    `_nonrigid_frame` runs in its place, with no ShardKernels."""
+    mesh = spmd.make_mesh() if mesh is None else mesh
+    extra, mode = NONSTRICT[variant]
+    dp = dataclasses.replace(bench_params(128), **extra)
+    dev = mesh.device
+    if unsharded:
+        def step(vol, wf, cv, cn, cm, depth, pose, mult):
+            (vol, wf, wv, wn, (lv, ln, lm), (mv, nv),
+             stats) = dyn._nonrigid_frame(
+                vol, wf, cv, cn, cm, depth, pose, dp=dp, intr=st["intr"],
+                config=st["cfg"], parity=False, canonical_mult=mult,
+                kernels=None, integrate_mode=mode)
+            return vol, wf, wv, wn, lv, ln, lm, mv, nv, stats
+    else:
+        step = engine_spmd.sharded_engine_frame(
+            mesh, dp, st["intr"], st["cfg"], strict_parity=False,
+            integrate_mode=mode, with_mult=True)
+    cv, cn, cm = st["canonical"]
+    vol, wf, cv, cn, cm, _, pose = engine_spmd.place_engine_state(
+        mesh, tv.TsdfVolume(*st["vol"]), wfield.WarpField(*st["wf"]), cv, cn,
+        cm, bench_frame(0), tuple(t.to(dev) for t in st["pose"]))
+    mult = None if st["mult"] is None else st["mult"].to(dev)
+    N, X = cv.shape[0], st["cfg"].dims[0]
+    out = {"frames": [], "ms": []}
+    for i in range(1, NONSTRICT_FRAMES + 1):
+        depth = torch.as_tensor(bench_frame(i).astype(np.int32), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (vol, wf, wv, wn, live_v, live_n, live_m, _, _, stats) = step(
+            vol, wf, cv, cn, cm, depth, pose, mult)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        full = spmd.gather_volume(vol, mesh, X)
+        rec = dict(tsdf=full.tsdf, weight=full.weight,
+                   wv=spmd.all_gather_rows(wv, mesh, N),
+                   wn=spmd.all_gather_rows(wn, mesh, N),
+                   live=spmd.all_gather_rows(live_v[live_m], mesh),
+                   live_n=spmd.all_gather_rows(live_n[live_m], mesh),
+                   dqs=wf.dqs, count=wf.count, mc=stats.mc_dropped,
+                   corr=stats.corr_dropped,
+                   solve=torch.stack([torch.as_tensor(
+                       x, dtype=torch.float64, device=dev).reshape(())
+                       for x in stats.solve]))
+        if mesh.rank == 0:
+            out["frames"].append({k: v.cpu() for k, v in rec.items()})
+    local = torch.tensor([launches(n) for n in KERNELS], device=dev)
+    out["rank_launches"] = [dict(zip(KERNELS, c.tolist()))
+                            for c in spmd.all_gather(local, mesh)]
+    return out
+
+
+def dist_nonstrict_phase():
+    """The non-strict sharded engine frame (strict_parity=False) at
+    bench_params(128), from fixed mode's frame 0 over frames 1-4 of the
+    moving sphere with the pose held, in both variants (the GN solve with
+    the separable integrate; DLB and the SE(3) solve with the rotated
+    integrate): the single card's unsharded non-strict frame and 1 rank in
+    this process (uncounted), then 2 ranks (rank 0 counted); every frame
+    of 1 rank bitwise the unsharded frame's, and of 2 ranks the 1 rank's."""
+    st = _nonstrict_state()
+    card = {v: _nonstrict_frames(st, v, spmd.Mesh(0, 1, DEV, None),
+                                 unsharded=True) for v in NONSTRICT}
+    one = {v: _nonstrict_frames(st, v, spmd.Mesh(0, 1, DEV, None))
+           for v in NONSTRICT}
+    torch.cuda.empty_cache()
+    sharded = {}
+
+    def run():
+        for v in NONSTRICT:
+            sharded[v] = runtime.spawn(_nonstrict_frames, DIST_RANKS, st, v,
+                                       inline=True)
+        return {v: dict(ms_1rank=one[v]["ms"], ms_2rank=sharded[v]["ms"])
+                for v in NONSTRICT}
+    res, got = run_path("dist_nonstrict", run)
+    summary = {}
+    for v in NONSTRICT:
+        same = [all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
+                for a, b in zip(one[v]["frames"], sharded[v]["frames"])]
+        as_card = [all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
+                   for a, b in zip(card[v]["frames"], one[v]["frames"])]
+        require(len(as_card) == NONSTRICT_FRAMES and all(as_card),
+                f"dist_nonstrict {v}: a 1-rank frame differs from the "
+                f"unsharded frame's ({as_card})")
+        last = one[v]["frames"][-1]
+        summary[v] = dict(bitwise=sum(same), unsharded_bitwise=sum(as_card),
+                          frames=len(same),
+                          live=int(last["live"].shape[0]),
+                          corr_dropped=int(last["corr"]),
+                          nodes=int(last["count"]))
+        require(len(same) == NONSTRICT_FRAMES and all(same),
+                f"dist_nonstrict {v}: a frame differs from the single "
+                f"rank's ({same})")
+        for r, counts in enumerate(sharded[v]["rank_launches"]):
+            require(counts["knn_gather"] > 0 and counts["data_normal" if v
+                                                        == "gn" else
+                                                        "monomial_grams"] > 0,
+                    f"dist_nonstrict {v}: rank {r} launched {counts}")
+    print(f"dist_nonstrict: sharded_engine_frame(strict_parity=False), "
+          f"bench_params(128), frames 1-{NONSTRICT_FRAMES} unsharded, on 1 "
+          f"rank and on {DIST_RANKS} ranks: {json.dumps(summary)}",
+          flush=True)
+    return got
+
+
 def cli_devices_check():
     """`dynfu-torch run --devices 2` (spawned ranks, this process rank 0)
     on the umbrella's first 4 frames at 128^3 with renders and checkpoints
@@ -2867,12 +3372,18 @@ def main() -> int:
               ("movingcam_simreg", simreg_phase),
               ("fusion_t512", fusion_t512_phase),
               ("umbrella512", umbrella_phase),
+              ("umbrella_full512", umbrella_full512_phase),
               ("fixed128", fixed_phase),
               ("cli512", cli512_phase),
               ("cli_rigid512", cli_rigid512_phase),
               ("dist_parity512", dist_parity512_phase),
               ("dist_fusion512", dist_fusion512_phase),
               ("dist_step512", dist_step512_phase),
+              ("dist_nonstrict", dist_nonstrict_phase),
+              ("corr_block", corr_block_phase),
+              ("xwindow_block", xwindow_block_phase),
+              ("knn_variants", knn_variants_phase),
+              ("bitplanes512", bitplanes512_phase),
               ("formulations", formulations_check)]
     out = {}
     for name, fn in phases:
@@ -2890,6 +3401,7 @@ def main() -> int:
         for n in KERNELS]}
     rows = {r["name"]: r for r in table["kernels"]}
     rows["slab_sweep"]["resolve"] = rows.pop("sweep_resolve")
+    rows["nn1_window_sweep"]["block_placement"] = out["corr_block"]
     table["kernels"] = [rows[n] for n in TABLE]
     print(json.dumps(table))
     print(nvidia_smi())

@@ -33,3 +33,14 @@ __version__ = "0.1.0"
 from dynfu_tpu_torch.engine.params import (  # noqa: E402,F401
     DynFuParams, KinFuParams, SolverParams)
 from dynfu_tpu_torch.core.camera import Intr  # noqa: E402,F401
+
+
+def __getattr__(name):
+    # the engines are imported lazily, as the source's (__init__.py:27-37)
+    if name == "DynFusion":
+        from dynfu_tpu_torch.engine.dynfusion import DynFusion
+        return DynFusion
+    if name == "KinFu":
+        from dynfu_tpu_torch.engine.kinfu import KinFu
+        return KinFu
+    raise AttributeError(name)

@@ -19,8 +19,12 @@ the source's, each collective written out (dist/spmd.py):
   replicated, on identical inputs, so the node state stays identical.
 
 There is one path and it runs the port's kernels on every rank (the source
-also has a GSPMD trace without its kernels). Fixed mode raises, as in the
-source.
+also has a GSPMD trace without its kernels). The non-strict frame
+(`strict_parity=False`, the fixed pipeline's) runs the same way, with the
+pose given: each block's marching-cubes soup, its gradient normals from 3
+halo planes, the GN data Gram or the SE(3) solve's monomial Grams as
+float64 partials in rank order. The sharded driver refuses fixed mode, as
+the source's does (its ICP tracks against a raycast of the whole volume).
 
 Fusion mode (`sharded_fusion_frame`, the persistent canonical volume) keeps
 the volume blocked the same way, with a halo of 2 planes for the band's
@@ -48,15 +52,16 @@ from dynfu_tpu_torch.volume import tsdf as tv
 
 
 def shard_kernels(mesh: spmd.Mesh, config: tv.TsdfConfig) -> dyn.ShardKernels:
-    """The rank's sharded stages of the parity frame."""
+    """The rank's sharded stages of the parity and fixed frames."""
     X = config.dims[0]
     return dyn.ShardKernels(
         x0=mesh.block(X)[0],
-        halo_fn=lambda vol: spmd.halo_slab(vol, mesh, X),
+        halo_fn=lambda vol, width=1: spmd.halo_slab(vol, mesh, X, width),
         prefix=lambda counts: spmd.prefix(counts, mesh),
         warp_fn=lambda wf, cv, cn: shard_warp.warp_points_normals_sharded(
             mesh, wf, cv, cn),
-        gram_fn=shard_gram.data_normal_fn(mesh))
+        gram_fn=shard_gram.data_normal_fn(mesh),
+        data_term=shard_gram.monomial_grams_fn(mesh))
 
 
 def fusion_shard_kernels(mesh: spmd.Mesh,
@@ -103,8 +108,19 @@ def sharded_fusion_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
 
 
 def sharded_engine_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
-                         config: tv.TsdfConfig, mode: str = "parity"):
-    """The engine's parity `_nonrigid_frame` over `mesh`.
+                         config: tv.TsdfConfig, strict_parity: bool = True,
+                         integrate_mode: str = "separable",
+                         with_mult: bool = False):
+    """The engine's `_nonrigid_frame` over `mesh`: the parity frame, or with
+    strict_parity=False the non-strict one (the fixed pipeline's frame:
+    gradient normals on each block's marching-cubes soup, the warped
+    vertices and normals fetched with the correspondence, the GN solve on
+    its own graph, or DLB and the SE(3) solve with dp.solver_rotations; the
+    pose comes in, as the source's, which tracks none). integrate_mode is
+    the integrate for that pose (KinFu._integrate_mode: "separable",
+    "rotated" or "gather"), per x-block. Fusion mode's frame is
+    sharded_fusion_frame. with_mult is the source's switch for the step's
+    trailing canonical_mult, which the step takes either way.
 
     Returns step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
     pose, canonical_mult=None) -> (vol, wf, wv, wn, live_v, live_n, live_m,
@@ -114,11 +130,7 @@ def sharded_engine_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
     itself with unique edges) its block's, the node state and the stats
     (drop counts summed over ranks) replicated. The inputs come from
     `place_engine_state`; every rank calls step together."""
-    if mode != "parity":
-        raise NotImplementedError(
-            f"mode {mode!r}: this is the parity frame (fusion mode's is "
-            "sharded_fusion_frame); fixed mode's rigid-ICP pyramid chaining "
-            "is single-device (as in dynfu_tpu)")
+    del with_mult
     kern = shard_kernels(mesh, config)
 
     def step(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm, pose,
@@ -126,8 +138,9 @@ def sharded_engine_frame(mesh: spmd.Mesh, dp: DynFuParams, intr,
         (vol, wf, wv, wn, (live_v, live_n, live_m), (mesh_verts, n_verts),
          stats) = dyn._nonrigid_frame(
             vol, wf, canonical_v, canonical_n, canonical_m, depth_mm, pose,
-            dp=dp, intr=intr, config=config, parity=True,
-            canonical_mult=canonical_mult, kernels=kern)
+            dp=dp, intr=intr, config=config, parity=strict_parity,
+            canonical_mult=canonical_mult, kernels=kern,
+            integrate_mode=integrate_mode)
         lo, hi = mesh.block(wv.shape[0])
         return (vol, wf, wv[lo:hi], wn[lo:hi], live_v, live_n, live_m,
                 mesh_verts, n_verts, stats)
@@ -188,18 +201,18 @@ def _frame_ms(device: str, iters: int) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def sharding_overhead(n_ranks: int = 2, iters: int = 5,
+def sharding_overhead(n_devices: int = 2, iters: int = 5,
                       device="cuda") -> dict:
     """ms per sharded engine frame at 1 rank (this process, no process
-    group) and at n_ranks local ranks (spawned; this process is rank 0),
+    group) and at n_devices local ranks (spawned; this process is rank 0),
     and their ratio, as the source measures it (engine_spmd.py:242-291).
     With ranks sharing a card this measures the collectives and the other
     processes, not scaling."""
     ms1 = _frame_ms(device, iters)
-    msn = runtime.spawn(_frame_ms, n_ranks, device, iters, device=device,
+    msn = runtime.spawn(_frame_ms, n_devices, device, iters, device=device,
                         inline=True)
     cards = torch.cuda.device_count()
-    return {"ms_1rank": ms1, f"ms_{n_ranks}rank": msn,
+    return {"ms_1rank": ms1, f"ms_{n_devices}rank": msn,
             "overhead_x": msn / ms1,
-            "backend": runtime.choose_backend(device, n_ranks),
+            "backend": runtime.choose_backend(device, n_devices),
             "cards": cards}

@@ -10,7 +10,8 @@ Jobs:
 * "ops": the sharded kernels' functions on given inputs: the warp
   (warp_points_normals_sharded), the 1-NN (nn1_xwindow_sharded), the Gram
   (data_normal_sharded), the monomial Grams (monomial_grams_sharded);
-* "frame": one sharded_engine_frame from a given engine state;
+* "frame": one sharded_engine_frame from a given engine state (parity,
+  or the non-strict frame with strict_parity=False);
 * "drive": a ShardedDynFusion over given depth frames;
 * "fusion_frame": one sharded_fusion_frame from a given fusion engine
   state;
@@ -75,8 +76,9 @@ def ops(mesh, *, warp=None, corr=None, gram=None, mono=None):
     return out
 
 
-def frame(mesh, *, params, state, depth):
-    """One sharded parity frame from a JAX engine's state after frame 0
+def frame(mesh, *, params, state, depth, strict_parity=True,
+          integrate_mode="separable"):
+    """One sharded engine frame from a JAX engine's state after frame 0
     (utils/convert.load_engine_state's keywords); the outputs gathered."""
     from dynfu_tpu_torch.engine.dynfusion import DynFusion
     from dynfu_tpu_torch.utils import convert
@@ -84,19 +86,23 @@ def frame(mesh, *, params, state, depth):
     e = convert.load_engine_state(DynFusion(params, device=mesh.device),
                                   **state)
     c = e.canonical
-    step = engine_spmd.sharded_engine_frame(mesh, e.dynfu_params,
-                                            e.params.intr, e.tsdf_config)
+    step = engine_spmd.sharded_engine_frame(
+        mesh, e.dynfu_params, e.params.intr, e.tsdf_config,
+        strict_parity=strict_parity, integrate_mode=integrate_mode)
     args = engine_spmd.place_engine_state(mesh, e.vol, e.warpfield,
                                           c.vertices, c.normals, c.mask,
                                           depth, e.poses[-1])
-    (vol, wf, wv, _, live_v, _, live_m, soup, n, stats) = step(
+    (vol, wf, wv, wn, live_v, live_n, live_m, soup, n, stats) = step(
         *args, e.canonical_mult)
     full = spmd.gather_volume(vol, mesh, e.tsdf_config.dims[0])
     rows = spmd.all_gather_rows(soup[:int(n)], mesh)
+    N = c.vertices.shape[0]
     return dict(tsdf=_np(full.tsdf), weight=_np(full.weight),
-                wv=_np(spmd.all_gather_rows(wv, mesh, c.vertices.shape[0])),
+                wv=_np(spmd.all_gather_rows(wv, mesh, N)),
+                wn=_np(spmd.all_gather_rows(wn, mesh, N)),
                 soup=_np(rows), n_verts=rows.shape[0],
                 live=_np(spmd.all_gather_rows(live_v[live_m], mesh)),
+                live_n=_np(spmd.all_gather_rows(live_n[live_m], mesh)),
                 **_wf_stats(wf, stats))
 
 

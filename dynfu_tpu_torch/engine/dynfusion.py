@@ -165,19 +165,22 @@ def _in_box(v, aabb):
 
 
 class ShardKernels(NamedTuple):
-    """The stages a sharded parity frame runs otherwise (source:
+    """The stages a sharded parity or fixed frame runs otherwise (source:
     dynfu_tpu/engine/dynfusion.py:178-196; dist/engine_spmd.py builds
     them). The rank holds planes x0.. of the volume and its block's live
     vertices; the nodes and the canonical are replicated.
 
     * x0: the block's first plane (integrate);
-    * halo_fn(vol) -> (slab, (h0, h1)): the block with its neighbours'
-      boundary planes (the edge extraction and marching cubes);
+    * halo_fn(vol, width=1) -> (slab, (h0, h1)): the block with `width` of
+      its neighbours' boundary planes on each side (the edge extraction and
+      marching cubes; 3 for the fixed frame's gradient normals);
     * prefix(counts) -> (before, total): the capacities over all blocks
       (ops/compaction.py), and the drop counts summed over ranks;
     * warp_fn(wf, canonical_v, canonical_n) -> (wv, wn) of the whole
       canonical, each rank warping a row range;
-    * gram_fn: gn.solve's data_normal_fn, reduced over ranks in rank order.
+    * gram_fn: gn.solve's data_normal_fn, reduced over ranks in rank order;
+    * data_term: se3.solve's, reduced likewise (the fixed frame with
+      solver_rotations).
 
     The correspondence needs none: knn.nn1_gather_xwindow on the block's
     live set against the replicated warped canonical, its graph payload
@@ -189,6 +192,7 @@ class ShardKernels(NamedTuple):
     prefix: object
     warp_fn: object
     gram_fn: object
+    data_term: object = None
 
 
 def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
@@ -203,30 +207,34 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
     correspondence, and solves with its own graph (or per-node SE(3) with
     solver_rotations). integrate_mode is the source's integrate for the
     pose (KinFu._integrate_mode): "separable" (the parity pipeline's
-    identity pose), "rotated" (not with `kernels`) or "gather".
+    identity pose), "rotated" or "gather".
 
     With fg_aabb (foreground tracking) the live set is compacted to the box,
     in scan order, before correspondence and solve; live vertices in the box
     beyond max_fg_verts count into corr_dropped.
 
-    With `kernels` (parity mode, dist/engine_spmd.py) the volume is the
-    rank's x-block, the live set its block's vertices (in rank order the
-    single card's), wv and wn the whole canonical's, and the counts global.
+    With `kernels` (dist/engine_spmd.py) the volume is the rank's x-block,
+    the live set its block's vertices (in rank order the single card's),
+    wv and wn the whole canonical's, and the counts global.
 
     Returns (vol, wf, wv, wn, (live_v, live_n, live_m), (mesh_verts,
     n_verts), stats)."""
     dists = imgproc.compute_dists(depth_mm, intr)
-    if integrate_mode == "rotated" and kernels is None:
-        vol = tv.integrate_rotated(vol, dists, pose, intr, config, fresh=True)
+    x0 = 0 if kernels is None else kernels.x0
+    if integrate_mode == "rotated":
+        vol = tv.integrate_rotated(vol, dists, pose, intr, config, fresh=True,
+                                   x0=x0)
     elif integrate_mode in ("separable", "gather"):
-        x0 = 0 if kernels is None else kernels.x0
         vol = tv.integrate(vol, dists, pose, intr, config, fresh=True, x0=x0,
                            separable=integrate_mode == "separable")
     else:
         raise ValueError(f"integrate_mode {integrate_mode!r}")
     slab, block = vol, {}
     if kernels is not None:
-        slab, halo = kernels.halo_fn(vol)
+        # the fixed frame's gradient normals at the soup's centre-convention
+        # vertices (up to half a voxel beyond a block's last cell) read up
+        # to 3 planes beyond the block
+        slab, halo = kernels.halo_fn(vol, 1 if parity else 3)
         block = dict(x0=x0, halo=halo, prefix=kernels.prefix)
     if dp.corr_unique_edges and parity:
         # the unique vertex set feeds correspondence and solve; the
@@ -240,11 +248,13 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
         live_v, n_verts, mc_dropped = marching_cubes(
             slab, config, max_voxels=dp.max_mc_voxels,
             max_verts=dp.max_vertices, col_budget=dp.mc_col_budget, **block)
-    del slab
     mesh = (live_v, n_verts)
     live_m = torch.arange(live_v.shape[0], device=live_v.device) < n_verts
     live_n = (live_v if parity
-              else tv.extract_normals(vol, live_v, config, frame="volume"))
+              else tv.extract_normals(slab, live_v, config, frame="volume",
+                                      **{k: block[k] for k in block
+                                         if k in ("x0", "halo")}))
+    del slab
 
     fg_dropped = 0
     if dp.fg_aabb is not None and dp.max_fg_verts > 0:
@@ -286,7 +296,9 @@ def _nonrigid_frame(vol, wf, canonical_v, canonical_n, canonical_m, depth_mm,
             wf, corr_v, live_v, vert_mask=corr_m & live_m,
             relinearize=dp.se3_relinearize, incremental=True,
             rot_prior=dp.se3_rot_prior, trans_prior=dp.se3_trans_prior,
-            similarity_reg=dp.se3_similarity_reg, **solver)
+            similarity_reg=dp.se3_similarity_reg,
+            **({} if kernels is None else dict(data_term=kernels.data_term)),
+            **solver)
     else:
         k = dp.knn
         graph_w = ((fetched[:, :k], fetched[:, k:2 * k],
@@ -595,10 +607,15 @@ class DynFusion(KinFu):
     _fg_compact)."""
 
     def __init__(self, params: Optional[DynFuParams] = None, device="cuda",
-                 mode: str = "parity"):
+                 mode: Optional[str] = None, strict_parity: bool = True):
+        # the source's switch (dynfusion.py:600-609): without a mode,
+        # strict_parity picks parity, else fixed; the mode decides it after
+        if mode is None:
+            mode = "parity" if strict_parity else "fixed"
         if mode not in ("parity", "fixed", "fusion"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
+        self.strict_parity = mode == "parity"
         self.dynfu_params = params or DynFuParams.default_params()
         dp = self.dynfu_params
         super().__init__(dp.kinfu, device)

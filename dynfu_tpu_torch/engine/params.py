@@ -171,6 +171,11 @@ class DynFuParams:
                     max_nodes=256, max_new_nodes=128,
                     corr_escalate=4096, corr_rescue=1024)
 
+    @property
+    def w_reg(self) -> float:
+        raise AttributeError("w_reg depends on the active node count; use "
+                             "engine.params.w_reg(lambda_reg, D, knn)")
+
 
 def w_reg(lambda_reg: float, D: int, knn: int) -> float:
     """Per-term regularisation weight sqrt(lambda / (D * KNN))."""

@@ -58,7 +58,7 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
                              convention: str = "center",
                              col_budget: int = 0,
                              with_normals: bool = False, x0: int = 0,
-                             halo=(0, 0), prefix=None):
+                             halo=(0, 0), prefix=None, bitplanes=None):
     """Extract the unique isosurface vertex set.
 
     Returns (verts (max_edges, 3) float32 volume-frame meters, the first
@@ -66,7 +66,12 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
     edges not captured because a capacity overflowed), and with
     with_normals=True also (max_edges, 3) TSDF-gradient normals: the two
     endpoints' lattice central differences lerped by the interpolation
-    fraction, NaN outside [2, dims - 2)^3 (extract_normals' rule)."""
+    fraction, NaN outside [2, dims - 2)^3 (extract_normals' rule).
+
+    bitplanes: optional (pack_columns(tsdf < 0), pack_columns(weight != 0))
+    of the planes held, as tsdf.integrate_separable(emit_bitplanes=True)
+    returns them; the sign and weight masks are then unpacked from them,
+    not read from the volume (the vertices still read the TSDF values)."""
     if convention not in ("center", "corner"):
         raise ValueError(f"unknown convention {convention!r}")
     h0, h1 = halo
@@ -78,7 +83,10 @@ def isosurface_edge_vertices(vol: TsdfVolume, config: TsdfConfig,
     nb = X - h0 - h1  # and its halo
     dev = vol.tsdf.device
     Fh, Wt = vol.tsdf, vol.weight
-    ins, val = Fh < 0, Wt != 0  # (X, Y, Z)
+    if bitplanes is None:
+        ins, val = Fh < 0, Wt != 0  # (X, Y, Z)
+    else:
+        ins, val = (compaction.unpack_columns(w, Z) for w in bitplanes)
 
     # cell occupancy as marching cubes (X-1, Y-1, Z-1), then padded to Z
     pz_val = val[:, :, :-1] & val[:, :, 1:]

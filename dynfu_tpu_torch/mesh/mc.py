@@ -44,6 +44,10 @@ from dynfu_tpu_torch.ops import compaction
 from dynfu_tpu_torch.volume.tsdf import TsdfConfig, TsdfVolume
 
 
+# default vertex-buffer capacity / 3 (dynfu_tpu/mesh/mc.py:46)
+MAX_TRIANGLES = 2_000_000
+
+
 def marching_cubes(vol: TsdfVolume, config: TsdfConfig,
                    max_voxels: int = 1 << 17, max_verts: int = 3 * 600_000,
                    convention: str = "center", col_budget: int = 0,

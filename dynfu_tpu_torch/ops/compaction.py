@@ -16,6 +16,12 @@ source's, overflow included:
 * `rank_select`: the first `size` set positions, padded with `fill`.
 
 Output order is ascending (column, z): the dense row-major scan order.
+
+The source's packed words themselves are kept for its integrate's bit
+planes (`pack_columns`, `pair_and_z`, `unpack_columns`): torch.uint32
+words, bit z of word w = element 32w + z, built and read byte by byte (a
+little-endian word's byte k holds bits 8k..8k+7), since torch shifts no
+uint32.
 Every function reads the mask's true count back to the host once
 (`torch.nonzero` has a data-dependent size).
 
@@ -134,3 +140,34 @@ def dilate_z(mask: torch.Tensor, r: int) -> torch.Tensor:
 def dilate_xy(mask: torch.Tensor, r: int) -> torch.Tensor:
     """Binary dilation by +-r along axis 0, then along axis 1."""
     return _dilate_axis(_dilate_axis(mask, r, 0), r, 1)
+
+
+_BYTE_BITS = (1 << torch.arange(8)).to(torch.uint8)
+
+
+def pack_columns(bits: torch.Tensor) -> torch.Tensor:
+    """(..., Z) bool -> (..., ceil(Z/32)) uint32, bit z of word w = element
+    32w + z; padding bits (beyond Z) zero (dynfu_tpu/ops/compaction.py:37)."""
+    Z = bits.shape[-1]
+    nw = (Z + 31) // 32
+    b = torch.cat([bits, bits.new_zeros(bits.shape[:-1] + (nw * 32 - Z,))],
+                  -1).to(torch.uint8)
+    b = b.reshape(bits.shape[:-1] + (nw * 4, 8))
+    byte = (b * _BYTE_BITS.to(b.device)).sum(-1, dtype=torch.uint8)
+    return byte.contiguous().view(torch.uint32)
+
+
+def unpack_columns(words: torch.Tensor, Z: int) -> torch.Tensor:
+    """pack_columns' inverse: (..., nw) uint32 -> (..., Z) bool."""
+    byte = words.contiguous().view(torch.uint8)[..., None]
+    bits = (byte & _BYTE_BITS.to(byte.device)) != 0
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :Z]
+
+
+def pair_and_z(w: torch.Tensor) -> torch.Tensor:
+    """bit z := bit z AND bit z+1, carried across words (a 2-point z
+    stencil: cell occupancy from corner bits); uint32 words."""
+    w = w.to(torch.int64)
+    nxt = torch.cat([w[..., 1:], torch.zeros_like(w[..., :1])], -1)
+    down = (w >> 1) | ((nxt << 31) & 0xFFFFFFFF)
+    return (w & down).to(torch.uint32)

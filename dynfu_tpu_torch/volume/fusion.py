@@ -67,17 +67,18 @@ def integrate_warped(vol: TsdfVolume, wf: WarpField, dists: torch.Tensor,
                      camera_pose, intr: Intr, config: TsdfConfig, *,
                      normals: torch.Tensor | None = None,
                      min_cos: float = 0.0, max_active: int = 1 << 19,
-                     dilate: int = 2, knn_k: int = 4, blend: str = "dqb",
-                     x0: int = 0, halo_fn=None, prefix=None):
+                     dilate: int = 2, knn_k: int = 4, col_budget: int = 0,
+                     blend: str = "dqb", x0: int = 0, halo_fn=None,
+                     prefix=None):
     """Fuse one live depth frame into the canonical volume through the warp.
 
     dists (H, W) float16 meters; camera_pose (R, t) world <- camera;
     normals (H, W, 3) camera-frame live normals (NaN where invalid), which
     with min_cos > 0 reject grazing observations and weight the pull by the
     view cosine. Returns (vol, FusionStats), vol updated in place;
-    n_captured < n_band signals a band-capacity overflow. (The source's
-    `col_budget` argument is ignored there — its band capture has no
-    per-column budget — and is not ported.)"""
+    n_captured < n_band signals a band-capacity overflow. `col_budget` is
+    accepted and ignored, as in the source: the band capture has no
+    per-column budget to overflow (two-level rank select)."""
     Xg, Y, Z = config.dims
     X = vol.tsdf.shape[0]  # the planes held: the whole volume, or a block
     vsx, vsy, vsz = config.voxel_size

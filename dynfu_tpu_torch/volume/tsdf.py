@@ -286,19 +286,42 @@ def _vol2cam_rotation_split(vol: TsdfVolume, camera_pose):
     return R_rel, virt
 
 
+def integrate_separable(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
+                        intr: Intr, config: TsdfConfig, fresh: bool = False,
+                        emit_bitplanes: bool = False):
+    """The source's aligned-camera integrate (its one-hot matmul
+    formulation): `integrate(separable=True)`. With emit_bitplanes it
+    returns (vol, (ins_w, val_w)), the packed z-column planes
+    (compaction.pack_columns(tsdf < 0), pack_columns(weight != 0)) of the
+    updated volume that mesh/edges.isosurface_edge_vertices takes in place
+    of reading the volume's sign and weight."""
+    vol = integrate(vol, dists, camera_pose, intr, config, fresh=fresh,
+                    separable=True)
+    if not emit_bitplanes:
+        return vol
+    return vol, (compaction.pack_columns(vol.tsdf < 0),
+                 compaction.pack_columns(vol.weight != 0))
+
+
 def integrate_rotated(vol: TsdfVolume, dists: torch.Tensor, camera_pose,
                       intr: Intr, config: TsdfConfig,
-                      fresh: bool = False) -> TsdfVolume:
+                      fresh: bool = False, emit_bitplanes: bool = False,
+                      x0: int = 0):
     """The source's rotated-camera integrate: the dists image warped by the
     rotation homography (nearest pixel), then integrated from the
     equivalent axis-aligned camera (`integrate(separable=True)`). sdf uses
     |vc|, which the rotation does not change, so the update differs from
-    `integrate`'s by the image's resampling."""
+    `integrate`'s by the image's resampling. emit_bitplanes as
+    `integrate_separable`; x0 as `integrate` (an x-block)."""
     R_rel, virt = _vol2cam_rotation_split(vol, camera_pose)
     warped = _warp_image_nearest(dists, _rotation_homography(R_rel, intr),
                                  dists.shape)
-    return integrate(vol, warped, virt, intr, config, fresh=fresh,
-                     separable=True)
+    vol = integrate(vol, warped, virt, intr, config, fresh=fresh, x0=x0,
+                    separable=True)
+    if not emit_bitplanes:
+        return vol
+    return vol, (compaction.pack_columns(vol.tsdf < 0),
+                 compaction.pack_columns(vol.weight != 0))
 
 
 def raycast_rotated(vol: TsdfVolume, camera_pose, intr: Intr,

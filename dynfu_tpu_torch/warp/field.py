@@ -134,9 +134,14 @@ def warp_points_normals_dlb(wf: WarpField, points, normals):
     return wp, wn
 
 
-def calc_dqb(wf: WarpField, points) -> torch.Tensor:
-    """Blend node transforms at query points: (Q, 8) dual quaternions."""
-    _, _, n_pos, n_dq, n_w, n_valid = neighbor_features(wf, points)
+def calc_dqb(wf: WarpField, points, neighbor_idx=None) -> torch.Tensor:
+    """Blend node transforms at query points: (Q, 8) dual quaternions; with
+    neighbor_idx (Q, k) the given nodes are blended, in that order."""
+    if neighbor_idx is not None:
+        n_pos, n_dq = wf.pos[neighbor_idx], wf.dqs[neighbor_idx]
+        n_w, n_valid = wf.w[neighbor_idx], wf.mask[neighbor_idx]
+    else:
+        _, _, n_pos, n_dq, n_w, n_valid = neighbor_features(wf, points)
     return _dqb_from_features(points, n_pos, n_dq, n_w, n_valid)
 
 

@@ -59,6 +59,7 @@ from dynfu_tpu_torch.volume import sweep_cuda
 from dynfu_tpu_torch.volume import tsdf as ttv
 from dynfu_tpu_torch.warp import field as tfield
 
+from test_torch_fusion import module_refs
 from test_solver_parity import (ALL_NODES, DG_W, GROUP1, LAMBDA, MAX_ERROR,
                                 PSI_DATA, PSI_REG, SRC5, SRC5B, TGT5, TGT5B,
                                 TGT5C, TUKEY_OFFSET)
@@ -242,9 +243,9 @@ def _np(out):
     return np.asarray(out)
 
 
-def _small_case(name, mp):
+def _small_case(name, refs):
     """(JAX's result, the port's) of one small public function on seeded
-    inputs."""
+    inputs (raycast_depth's JAX result from the module's `refs`)."""
     rng = np.random.default_rng(3)
     jintr, tintr = JIntr(*INTR), TIntr(*INTR)
     pts = (rng.normal(size=(50, 3)) * 0.2 + [0, 0, 1]).astype(np.float32)
@@ -293,7 +294,7 @@ def _small_case(name, mp):
     assert name == "raycast_depth"
     # both convert their `raycast`, the slab sweep
     jcfg, tcfg, jv, tv = _swept_volume()
-    return (jtv.raycast_depth(jv, IDENT, jintr, (H, W), jcfg),
+    return (refs["views"]["raycast_depth"],
             ttv.raycast_depth(tv, IDENT, tintr, (H, W), tcfg))
 
 
@@ -303,33 +304,6 @@ SMALL = ["intr_project", "intr_reproject", "se3_make", "se3_apply",
 
 
 NORMALS_TOL = {"compute_normals_and_mask_depth": 1e-5}
-
-
-@pytest.mark.parametrize("name", SMALL)
-def test_small_functions_match_jax(name, monkeypatch):
-    """The reference's small public functions and the port's on the same
-    seeded inputs: integers (band_budget, raycast_depth's millimetres, the
-    masked depth) index for index, NaNs at the same places, floats within
-    1e-6 (the same float32 operations), normals within the bounds of their
-    own tests: 1e-5 from the depth map (test_compute_points_normals_
-    matches_jax), the slab sweep's from raycast_depth
-    (test_sweep_matches_jax: _hold_sweep_normals)."""
-    want, got = (_np(o) for o in _small_case(name, monkeypatch))
-    want = want if isinstance(want, tuple) else (want,)
-    got = got if isinstance(got, tuple) else (got,)
-    assert len(want) == len(got)
-    for w, g in zip(want, got):
-        assert g.shape == w.shape
-        if np.issubdtype(w.dtype, np.integer):
-            np.testing.assert_array_equal(g, w)
-        elif name == "raycast_depth":
-            _hold_sweep_normals(g, w)
-        else:
-            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
-            tol = NORMALS_TOL.get(name, 1e-6)
-            np.testing.assert_allclose(g, w, rtol=0, atol=tol)
-    if name == "raycast_depth":
-        assert (want[0] > 0).sum() > 1000
 
 
 def _rot(angle_deg):
@@ -420,20 +394,9 @@ def _hold_sweep(got, want, min_hits=3000):
     _hold_sweep_normals(gn, wn)
 
 
-@pytest.mark.parametrize("fn,pose", [("raycast", "identity"),
-                                     ("raycast", "rotated"),
-                                     ("raycast_separable", "identity"),
-                                     ("raycast_separable", "translated")])
-def test_sweep_matches_jax(fn, pose):
-    """The plain slab sweep (the kernel's CPU version) against the source's
-    raycast (any pose towards +z) and raycast_separable (an axis-aligned
-    camera) at 64^3, 96x128: _hold_sweep. The source's separable bilinear
-    is two matmuls, float32 on the CPU; the port sums the same two
-    products per row and column in their order."""
-    jcfg, tcfg, jv, tv = _swept_volume()
-    want = getattr(jtv, fn)(jv, POSES[pose], JIntr(*INTR), (H, W), jcfg)
-    got = getattr(ttv, fn)(tv, POSES[pose], TIntr(*INTR), (H, W), tcfg)
-    _hold_sweep(got, want)
+SWEEP_CASES = [("raycast", "identity"), ("raycast", "rotated"),
+               ("raycast_separable", "identity"),
+               ("raycast_separable", "translated")]
 
 
 def _summary_numpy(slabs):
@@ -508,22 +471,14 @@ def test_slab_sweep_refuses_another_stacks_summary():
                                   rays, spec)
 
 
-@pytest.mark.parametrize("tilt,margin", [(0.05, 1.15), (0.35, 1.6)])
-def test_raycast_rotated_matches_jax(tilt, margin):
-    """raycast_rotated (the separable sweep on the virtual image, the
-    validity-weighted bilinear back-map with its silhouette guard, the
-    rotation into the camera frame) against the source's at two tilts under
-    0.6 rad and two virtual-image margins: _hold_sweep."""
-    jcfg, tcfg, jv, tv = _swept_volume()
+ROTATED_CASES = [(0.05, 1.15), (0.35, 1.6)]
+
+
+def _rotated_pose(tilt):
     axis = np.asarray([0.6, -0.8, 0.3]) / np.linalg.norm([0.6, -0.8, 0.3])
     R, _ = jse3.from_rodrigues(jnp.asarray(axis * tilt, jnp.float32),
                                jnp.zeros(3))
-    pose = (np.asarray(R), np.asarray([0.01, -0.02, 0.015], np.float32))
-    want = jtv.raycast_rotated(jv, pose, JIntr(*INTR), (H, W), jcfg,
-                               fov_margin=margin)
-    got = ttv.raycast_rotated(tv, pose, TIntr(*INTR), (H, W), tcfg,
-                              fov_margin=margin)
-    _hold_sweep(got, want, min_hits=2000)
+    return (np.asarray(R), np.asarray([0.01, -0.02, 0.015], np.float32))
 
 
 def test_warp_image_nearest_exact():
@@ -653,13 +608,18 @@ def test_dispatch_matches_jax(mode):
         KinFu(bad, device="cpu")
 
 
-@pytest.mark.parametrize("dims", [
+MC_DIMS = [
     64,  # 63^3 cells < 2^18: the source's dense compaction branch
     80,  # 79^3 cells > 2^18: its bit-packed branch, the one 128^3 takes
-])
-def test_marching_cubes_matches_jax(dims):
-    """Same vertex count, the same vertices index for index (coordinates
-    to 1e-6 m), the same drop count (0)."""
+]
+
+
+MC_CAPS = dict(max_voxels=1 << 14, max_verts=3 * 8192)
+
+
+def _mc_volume(dims):
+    """The sphere at the identity in a dims^3 volume (the port's integrate,
+    the source's bits): (jcfg, tcfg, JAX volume, port volume)."""
     jcfg, tcfg = _config(dims)
     radius = 0.22 * dims / 64
     dists = _dists(sphere_depth((0.0, 0.0, 0.75), radius, H, W, *INTR))
@@ -668,15 +628,7 @@ def test_marching_cubes_matches_jax(dims):
     jv = jtv.TsdfVolume(jnp.asarray(tv.tsdf.numpy()),
                         jnp.asarray(tv.weight.numpy()), jnp.eye(3),
                         jnp.asarray(VOL_T))
-    caps = dict(max_voxels=1 << 14, max_verts=3 * 8192)
-    jverts, jn, jdrop = jmc.marching_cubes(jv, jcfg, **caps)
-    tverts, tn, tdrop = tmc.marching_cubes(tv, tcfg, **caps)
-    n = int(jn)
-    assert n > 3000 and int(tn) == n
-    assert int(tdrop) == int(jdrop) == 0
-    np.testing.assert_allclose(tverts.numpy()[:n], np.asarray(jverts)[:n],
-                               rtol=0, atol=1e-6)
-    assert not tverts[n:].any()
+    return jcfg, tcfg, jv, tv
 
 
 def _pack_inputs(seed, M, spill):
@@ -837,26 +789,15 @@ def _vols(f, w):
     return jv, tv
 
 
-@pytest.mark.parametrize("convention,col_budget,max_voxels", [
+COL_BUDGET_CASES = [
     ("center", 6, 1 << 15),  # the per-column budget overflows
     ("corner", 0, 4096),  # max_voxels overflows
-])
-def test_marching_cubes_column_budget_matches_jax(convention, col_budget,
-                                                  max_voxels):
-    """66^3 (65^3 > 2^18 cells: the source's column-budget branch) with
-    the wall overflowing the per-column budget, or max_voxels: the same
-    vertices index for index, vertex count and n_dropped > 0."""
-    f, w, jcfg, tcfg = _wall_volume(66)
-    jv, tv = _vols(f, w)
-    caps = dict(max_voxels=max_voxels, max_verts=3 * 16384,
+]
+
+
+def _col_budget_caps(convention, col_budget, max_voxels):
+    return dict(max_voxels=max_voxels, max_verts=3 * 16384,
                 convention=convention, col_budget=col_budget)
-    jverts, jn, jdrop = jmc.marching_cubes(jv, jcfg, **caps)
-    tverts, tn, tdrop = tmc.marching_cubes(tv, tcfg, **caps)
-    n = int(jn)
-    assert n > 3000 and int(tn) == n
-    assert int(tdrop) == int(jdrop) > 0
-    np.testing.assert_allclose(tverts.numpy(), np.asarray(jverts), rtol=0,
-                               atol=1e-6)
 
 
 def _sphere_volume(dims=64):
@@ -871,32 +812,12 @@ def _sphere_volume(dims=64):
     return f, w, jtv.TsdfConfig(**cfg), tcfg
 
 
-@pytest.mark.parametrize("convention,col_budget,max_edges", [
+EDGE_CASES = [
     ("corner", 8, 1 << 13),  # the fusion preset's per-column budget
     ("center", 0, 1 << 13),  # the budget-free (extract_bits) path
     ("corner", 1, 1 << 13),  # per-column budget overflow
     ("corner", 0, 400),  # output overflow
-])
-def test_edge_vertices_with_normals_match_jax(convention, col_budget,
-                                              max_edges):
-    """The same edges in the same order and the same counters; vertices
-    within 1e-6 m (float32 ulp at 1 m); normals within 1e-5 (the port
-    normalises with its own sqrt, ~1 ulp apart) and NaN at the same rows."""
-    f, w, jcfg, tcfg = _sphere_volume()
-    jv, tv = _vols(f, w)
-    kw = dict(max_edges=max_edges, convention=convention,
-              col_budget=col_budget, with_normals=True)
-    jverts, jn, jdrop, jnorm = jedges.isosurface_edge_vertices(jv, jcfg, **kw)
-    tverts, tn, tdrop, tnorm = tedges.isosurface_edge_vertices(tv, tcfg, **kw)
-    n = int(jn)
-    assert n >= 400 and int(tn) == n and int(tdrop) == int(jdrop)
-    if max_edges == 400 or col_budget == 1:
-        assert int(jdrop) > 0
-    np.testing.assert_allclose(tverts.numpy(), np.asarray(jverts), rtol=0,
-                               atol=1e-6)
-    jnorm = np.asarray(jnorm)
-    np.testing.assert_array_equal(np.isnan(tnorm.numpy()), np.isnan(jnorm))
-    np.testing.assert_allclose(tnorm.numpy(), jnorm, rtol=0, atol=1e-5)
+]
 
 
 def test_compute_points_normals_matches_jax():
@@ -1201,6 +1122,415 @@ def test_solve_with_graph_and_update_gates_matches_jax():
     t = 2 * jdq[:D, 5:8]  # pure translations: dual = (0, t / 2)
     moved = np.linalg.norm(t, axis=1)
     assert (moved == 0).any() and (moved > 0).any()
+
+
+# --- the integrate's bit planes, the names of the source's public surface --
+
+
+@pytest.mark.parametrize("Z", [64, 45, 33, 1])
+def test_pack_columns_and_pair_and_z_match_jax(Z):
+    """uint32 words bitwise the source's, padding bits zero (Z not a
+    multiple of 32 too), and unpack_columns their inverse."""
+    bits = np.random.default_rng(Z).random((6, 5, Z)) < 0.4
+    jw = jcomp.pack_columns(jnp.asarray(bits))
+    tw = tcomp.pack_columns(torch.as_tensor(bits))
+    assert tw.dtype == torch.uint32
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tcomp.pair_and_z(tw).numpy(),
+                                  np.asarray(jcomp.pair_and_z(jw)))
+    np.testing.assert_array_equal(tcomp.unpack_columns(tw, Z).numpy(), bits)
+
+
+def _jax_bitplanes():
+    """The source's integrate_separable over two accumulating frames, the
+    second emitting its planes: (tsdf, weight, (ins_w, val_w))."""
+    jcfg, _ = _config(64)
+    d0, d1 = _dists(_depth(0.0)), _dists(_depth(0.02))
+    jv = jtv.integrate_separable(_jvol(jcfg), jnp.asarray(d0), IDENT,
+                                 JIntr(*INTR), jcfg)
+    jv, planes = jtv.integrate_separable(jv, jnp.asarray(d1), IDENT,
+                                         JIntr(*INTR), jcfg,
+                                         emit_bitplanes=True)
+    return np.asarray(jv.tsdf), np.asarray(jv.weight), _np(planes)
+
+
+def test_integrate_separable_bitplanes_match_jax(jax_refs):
+    """integrate_separable over two accumulating frames, the second
+    emitting the planes: the volume and both planes bitwise the source's
+    (its planes packed in the z-chunk loop)."""
+    _, tcfg = _config(64)
+    d0, d1 = _dists(_depth(0.0)), _dists(_depth(0.02))
+    jtsdf, jweight, jplanes = jax_refs["meshes"]["bitplanes"]
+    tv = ttv.integrate_separable(_tvol(tcfg), torch.as_tensor(d0), IDENT,
+                                 TIntr(*INTR), tcfg)
+    tv, tplanes = ttv.integrate_separable(tv, torch.as_tensor(d1), IDENT,
+                                          TIntr(*INTR), tcfg,
+                                          emit_bitplanes=True)
+    np.testing.assert_array_equal(tv.tsdf.numpy(), jtsdf)
+    np.testing.assert_array_equal(tv.weight.numpy(), jweight)
+    for t, j in zip(tplanes, jplanes):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    assert int((tplanes[0].numpy() != 0).sum()) > 100
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(col_budget=8), dict(convention="corner", with_normals=True)])
+def test_edge_vertices_from_bitplanes_equal_without(kw):
+    """The planes of integrate_rotated(emit_bitplanes=True) are those of its
+    volume, and the edge extraction given them returns the vertices, count,
+    drops (and normals) of the one that reads the volume, bitwise."""
+    _, tcfg = _config(64)
+    pose = (_rot(3.0), np.asarray([0.01, 0.0, 0.0], np.float32))
+    tv, planes = ttv.integrate_rotated(
+        _tvol(tcfg), torch.as_tensor(_dists(_depth())), pose, TIntr(*INTR),
+        tcfg, emit_bitplanes=True)
+    np.testing.assert_array_equal(planes[0].numpy(),
+                                  tcomp.pack_columns(tv.tsdf < 0).numpy())
+    np.testing.assert_array_equal(planes[1].numpy(),
+                                  tcomp.pack_columns(tv.weight != 0).numpy())
+    want = tedges.isosurface_edge_vertices(tv, tcfg, max_edges=8192, **kw)
+    got = tedges.isosurface_edge_vertices(tv, tcfg, max_edges=8192,
+                                          bitplanes=planes, **kw)
+    assert int(want[1]) > 500
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def _dqb_inputs():
+    rng = np.random.default_rng(41)
+    D, Q = 64, 300
+    pos = rng.uniform(0, 1, (D, 3)).astype(np.float32)
+    dqs = _rand_dq(rng, D)
+    w = np.full(D, 0.3, np.float32)
+    mask = rng.random(D) > 0.2
+    pts = rng.uniform(0, 1, (Q, 3)).astype(np.float32)
+    nidx = rng.integers(0, D, (Q, 8)).astype(np.int32)
+    return (pos, dqs, w, mask), pts, nidx
+
+
+def _jax_dqb():
+    """The source's calc_dqb with the neighbours given and without."""
+    wf, pts, nidx = _dqb_inputs()
+    jwf = jfield.WarpField(*(jnp.asarray(a) for a in wf),
+                           jnp.int32(len(wf[0])))
+    return (np.asarray(jfield.calc_dqb(jwf, jnp.asarray(pts),
+                                       jnp.asarray(nidx))),
+            np.asarray(jfield.calc_dqb(jwf, jnp.asarray(pts))))
+
+
+def test_calc_dqb_neighbor_idx_matches_jax(jax_refs):
+    """calc_dqb with given neighbours (unsorted, masked nodes among them)
+    within 1e-5 of the source's, and without (the k-NN's)."""
+    wf, pts, nidx = _dqb_inputs()
+    twf = tfield.WarpField(*(torch.as_tensor(a) for a in wf),
+                           torch.tensor(len(wf[0]), dtype=torch.int32))
+    given, knn = jax_refs["meshes"]["dqb"]
+    got = tfield.calc_dqb(twf, torch.as_tensor(pts),
+                          torch.as_tensor(nidx).long())
+    np.testing.assert_allclose(got.numpy(), given, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        tfield.calc_dqb(twf, torch.as_tensor(pts)).numpy(), knn, rtol=0,
+        atol=1e-5)
+
+
+class _Stop(Exception):
+    pass
+
+
+def _capture_params(monkeypatch, module, seen):
+    def engine(params, *a, **kw):
+        seen.append(params)
+        raise _Stop
+    monkeypatch.setattr(module, "DynFusion", engine)
+
+
+def test_run_benchmark_overrides_reach_params(monkeypatch):
+    """run_benchmark's max_nodes, max_vertices and overrides build the
+    source's parameters (the solver's keys into params.solver): the engine
+    stubbed on both sides, the port's equal to the source's converted."""
+    from dynfu_tpu.utils import benchmarks as jbench
+    from dynfu_tpu_torch.utils import benchmarks as tbench
+    from dynfu_tpu_torch.utils import convert
+
+    kw = dict(max_nodes=96, max_vertices=1 << 14, overrides=dict(
+        num_iter=3, early_out=False, lambda_reg=50.0, corr_rescue=17))
+    seen = []
+    for module, bench in ((jbench, jbench.run_benchmark),
+                          (tbench, tbench.run_benchmark)):
+        _capture_params(monkeypatch, module, seen)
+        with pytest.raises(_Stop):
+            bench(64, 4, 1, 48, 64, **kw)
+    jp, tp = seen
+    assert tp == convert.params(jp)
+    assert (tp.max_nodes, tp.max_vertices, tp.lambda_reg, tp.corr_rescue,
+            tp.solver.num_iter, tp.solver.early_out) == (
+        96, 1 << 14, 50.0, 17, 3, False)
+
+
+def test_run_benchmark_checks_counters_when_asked(monkeypatch):
+    """A run whose last frame drops: check_counters (the default) raises,
+    check_counters=False returns the drops (the engine stubbed)."""
+    from dynfu_tpu_torch.engine.dynfusion import FrameStats
+    from dynfu_tpu_torch.utils import benchmarks as tbench
+
+    class Engine:
+        device = torch.device("cpu")
+        last_frame_stats = FrameStats(None, torch.tensor(0), torch.tensor(5))
+
+        def __init__(self, params, *a, **kw):
+            pass
+
+        def __call__(self, depth):
+            pass
+
+        def warped_cloud(self, unique=True):
+            return torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool)
+
+    monkeypatch.setattr(tbench, "DynFusion", Engine)
+    args = (64, 1, 0, 12, 16)
+    with pytest.raises(RuntimeError, match="5 correspondences"):
+        tbench.run_benchmark(*args, repeats=3, device="cpu")
+    out = tbench.run_benchmark(*args, check_counters=False, repeats=3,
+                               device="cpu")
+    assert (out["corr_dropped"], out["mc_dropped_cells"]) == (5, 0)
+
+
+def _jax_exports(module):
+    """The names a source __init__ imports (its re-exports)."""
+    import ast
+    import importlib
+
+    tree = ast.parse(Path(importlib.import_module(module).__file__)
+                     .read_text())
+    return [a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) for a in node.names
+            if node.module not in ("__future__",)]
+
+
+@pytest.mark.parametrize("sub", ["", ".core", ".engine", ".mesh", ".rigid",
+                                 ".volume", ".dist"])
+def test_package_exports_match_jax(sub):
+    """Every name the source's package __init__s export (the lazy engines
+    and dist's lazy names included) is exported by the port's counterpart,
+    the same function or class by name."""
+    import importlib
+
+    jm = importlib.import_module("dynfu_tpu" + sub)
+    tm = importlib.import_module("dynfu_tpu_torch" + sub)
+    names = (list(jm.__all__) if sub == ".dist" else _jax_exports(jm.__name__))
+    if sub == "":
+        names += ["DynFusion", "KinFu"]
+    assert names
+    for n in names:
+        want, got = getattr(jm, n), getattr(tm, n)
+        name = getattr(want, "__name__", n).replace("dynfu_tpu.",
+                                                      "dynfu_tpu_torch.")
+        assert getattr(got, "__name__", n) == name, n
+        if isinstance(want, (int, float)):
+            assert got == want, n
+
+
+def test_public_arguments_match_jax():
+    """DynFusion(strict_parity=) picks the mode as the source's does,
+    DynFuParams.w_reg raises, integrate_warped takes col_budget,
+    sharding_overhead n_devices and make_mesh n_devices;
+    sharded_engine_frame takes the source's arguments but its TPU switches
+    (kernel_path, interpret) and nothing else."""
+    import inspect
+
+    from dynfu_tpu.dist import engine_spmd as jengine_spmd
+    from dynfu_tpu.engine.params import DynFuParams as JDynFuParams
+    from dynfu_tpu_torch.dist import engine_spmd, spmd
+    from dynfu_tpu_torch.engine.dynfusion import DynFusion
+    from dynfu_tpu_torch.engine.params import DynFuParams
+
+    small = DynFuParams(kinfu=DynFuParams().kinfu.with_volume_dims(32))
+    for kw, mode in ((dict(), "parity"), (dict(strict_parity=False), "fixed"),
+                     (dict(strict_parity=False, mode="fusion"), "fusion"),
+                     (dict(mode="parity", strict_parity=False), "parity")):
+        e = DynFusion(small, device="cpu", **kw)
+        assert (e.mode, e.strict_parity) == (mode, mode == "parity"), kw
+    for p in (JDynFuParams(), DynFuParams()):
+        with pytest.raises(AttributeError, match="active node count"):
+            p.w_reg
+    assert "col_budget" in inspect.signature(
+        tfusion.integrate_warped).parameters
+    assert list(inspect.signature(engine_spmd.sharding_overhead)
+                .parameters)[0] == "n_devices"
+    assert spmd.make_mesh(n_devices=1, device="cpu").world == 1
+    jargs = list(inspect.signature(jengine_spmd.sharded_engine_frame)
+                 .parameters)
+    assert list(inspect.signature(engine_spmd.sharded_engine_frame)
+                .parameters) == jargs[:jargs.index("kernel_path")]
+
+
+# --- the tests whose JAX side runs in the module's reference processes
+# (jax_refs, below), late in the file: the processes are done by then ----
+
+
+@pytest.mark.parametrize("name", SMALL)
+def test_small_functions_match_jax(name, jax_refs):
+    """The reference's small public functions and the port's on the same
+    seeded inputs: integers (band_budget, raycast_depth's millimetres, the
+    masked depth) index for index, NaNs at the same places, floats within
+    1e-6 (the same float32 operations), normals within the bounds of their
+    own tests: 1e-5 from the depth map (test_compute_points_normals_
+    matches_jax), the slab sweep's from raycast_depth
+    (test_sweep_matches_jax: _hold_sweep_normals)."""
+    want, got = (_np(o) for o in _small_case(name, jax_refs))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        assert g.shape == w.shape
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w)
+        elif name == "raycast_depth":
+            _hold_sweep_normals(g, w)
+        else:
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            tol = NORMALS_TOL.get(name, 1e-6)
+            np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+    if name == "raycast_depth":
+        assert (want[0] > 0).sum() > 1000
+
+
+@pytest.mark.parametrize("fn,pose", SWEEP_CASES)
+def test_sweep_matches_jax(fn, pose, jax_refs):
+    """The plain slab sweep (the kernel's CPU version) against the source's
+    raycast (any pose towards +z) and raycast_separable (an axis-aligned
+    camera) at 64^3, 96x128: _hold_sweep. The source's separable bilinear
+    is two matmuls, float32 on the CPU; the port sums the same two
+    products per row and column in their order."""
+    _, tcfg, _, tv = _swept_volume()
+    want = jax_refs["views"][("sweep", fn, pose)]
+    got = getattr(ttv, fn)(tv, POSES[pose], TIntr(*INTR), (H, W), tcfg)
+    _hold_sweep(got, want)
+
+
+@pytest.mark.parametrize("tilt,margin", ROTATED_CASES)
+def test_raycast_rotated_matches_jax(tilt, margin, jax_refs):
+    """raycast_rotated (the separable sweep on the virtual image, the
+    validity-weighted bilinear back-map with its silhouette guard, the
+    rotation into the camera frame) against the source's at two tilts under
+    0.6 rad and two virtual-image margins: _hold_sweep."""
+    _, tcfg, _, tv = _swept_volume()
+    want = jax_refs["views"][("rotated", tilt, margin)]
+    got = ttv.raycast_rotated(tv, _rotated_pose(tilt), TIntr(*INTR), (H, W),
+                              tcfg, fov_margin=margin)
+    _hold_sweep(got, want, min_hits=2000)
+
+
+@pytest.mark.parametrize("dims", MC_DIMS)
+def test_marching_cubes_matches_jax(dims, jax_refs):
+    """Same vertex count, the same vertices index for index (coordinates
+    to 1e-6 m), the same drop count (0)."""
+    jcfg, tcfg, jv, tv = _mc_volume(dims)
+    jverts, jn, jdrop = jax_refs["meshes"][("mc", dims)]
+    tverts, tn, tdrop = tmc.marching_cubes(tv, tcfg, **MC_CAPS)
+    n = int(jn)
+    assert n > 3000 and int(tn) == n
+    assert int(tdrop) == int(jdrop) == 0
+    np.testing.assert_allclose(tverts.numpy()[:n], np.asarray(jverts)[:n],
+                               rtol=0, atol=1e-6)
+    assert not tverts[n:].any()
+
+
+@pytest.mark.parametrize("convention,col_budget,max_voxels",
+                         COL_BUDGET_CASES)
+def test_marching_cubes_column_budget_matches_jax(convention, col_budget,
+                                                  max_voxels, jax_refs):
+    """66^3 (65^3 > 2^18 cells: the source's column-budget branch) with
+    the wall overflowing the per-column budget, or max_voxels: the same
+    vertices index for index, vertex count and n_dropped > 0."""
+    f, w, jcfg, tcfg = _wall_volume(66)
+    jv, tv = _vols(f, w)
+    caps = _col_budget_caps(convention, col_budget, max_voxels)
+    meshes = jax_refs["meshes"]
+    jverts, jn, jdrop = meshes[("col_budget", convention, col_budget,
+                                max_voxels)]
+    tverts, tn, tdrop = tmc.marching_cubes(tv, tcfg, **caps)
+    n = int(jn)
+    assert n > 3000 and int(tn) == n
+    assert int(tdrop) == int(jdrop) > 0
+    np.testing.assert_allclose(tverts.numpy(), np.asarray(jverts), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("convention,col_budget,max_edges", EDGE_CASES)
+def test_edge_vertices_with_normals_match_jax(convention, col_budget,
+                                              max_edges, jax_refs):
+    """The same edges in the same order and the same counters; vertices
+    within 1e-6 m (float32 ulp at 1 m); normals within 1e-5 (the port
+    normalises with its own sqrt, ~1 ulp apart) and NaN at the same rows."""
+    f, w, jcfg, tcfg = _sphere_volume()
+    jv, tv = _vols(f, w)
+    kw = dict(max_edges=max_edges, convention=convention,
+              col_budget=col_budget, with_normals=True)
+    meshes = jax_refs["meshes"]
+    jverts, jn, jdrop, jnorm = meshes[("edges", convention, col_budget,
+                                       max_edges)]
+    tverts, tn, tdrop, tnorm = tedges.isosurface_edge_vertices(tv, tcfg, **kw)
+    n = int(jn)
+    assert n >= 400 and int(tn) == n and int(tdrop) == int(jdrop)
+    if max_edges == 400 or col_budget == 1:
+        assert int(jdrop) > 0
+    np.testing.assert_allclose(tverts.numpy(), np.asarray(jverts), rtol=0,
+                               atol=1e-6)
+    jnorm = np.asarray(jnorm)
+    np.testing.assert_array_equal(np.isnan(tnorm.numpy()), np.isnan(jnorm))
+    np.testing.assert_allclose(tnorm.numpy(), jnorm, rtol=0, atol=1e-5)
+
+
+def _jax_views():
+    """The JAX side of the raycasts' tests (raycast_depth, the slab sweeps,
+    raycast_rotated), as numpy, in the order the tests ask for them."""
+    jcfg, _, jv, _ = _swept_volume()
+    out = {"raycast_depth": _np(jtv.raycast_depth(
+        jv, IDENT, JIntr(*INTR), (H, W), jcfg))}
+    for fn, pose in SWEEP_CASES:
+        out[("sweep", fn, pose)] = _np(getattr(jtv, fn)(
+            jv, POSES[pose], JIntr(*INTR), (H, W), jcfg))
+    for tilt, margin in ROTATED_CASES:
+        out[("rotated", tilt, margin)] = _np(jtv.raycast_rotated(
+            jv, _rotated_pose(tilt), JIntr(*INTR), (H, W), jcfg,
+            fov_margin=margin))
+    return out
+
+
+def _jax_meshes():
+    """The JAX side of the extraction tests (marching cubes, its column
+    budgets, the edge vertices), the bit planes' and calc_dqb's, as numpy."""
+    out = {}
+    for dims in MC_DIMS:
+        jcfg, _, jv, _ = _mc_volume(dims)
+        out[("mc", dims)] = _np(jmc.marching_cubes(jv, jcfg, **MC_CAPS))
+    f, w, jcfg, _ = _wall_volume(66)
+    jv, _ = _vols(f, w)
+    for case in COL_BUDGET_CASES:
+        out[("col_budget",) + case] = _np(jmc.marching_cubes(
+            jv, jcfg, **_col_budget_caps(*case)))
+    f, w, jcfg, _ = _sphere_volume()
+    jv, _ = _vols(f, w)
+    for convention, col_budget, max_edges in EDGE_CASES:
+        out[("edges", convention, col_budget, max_edges)] = _np(
+            jedges.isosurface_edge_vertices(
+                jv, jcfg, max_edges=max_edges, convention=convention,
+                col_budget=col_budget, with_normals=True))
+    out["bitplanes"] = _jax_bitplanes()
+    out["dqb"] = _jax_dqb()
+    return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_refs(request):
+    """The JAX side of the module's slowest tests, in two processes of
+    their own (test_torch_fusion.module_refs), started with its first test:
+    their compiles overlap each other and the module's other tests."""
+    refs = module_refs(request, {"views": _jax_views,
+                                 "meshes": _jax_meshes})
+    yield refs
+    refs.close()
 
 
 @pytest.fixture

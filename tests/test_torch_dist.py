@@ -14,7 +14,9 @@ functions, the parity frame, the step's references). Then:
   flags equal) and the Gram (JAX interpret, within 1e-5 of the largest
   entry; the port's 2-rank result bitwise its 1-rank one);
 * one sharded engine frame from JAX's frame-0 state, against JAX's
-  sharded_engine_frame with the per-voxel integrate (the port's);
+  sharded_engine_frame with the per-voxel integrate (the port's); the
+  non-strict frame (strict_parity=False: the GN solve, and DLB with the
+  SE(3) solve and the rotated integrate) on two ranks bitwise one rank's;
 * the 2-rank ShardedDynFusion over 4 frames against the single-card
   DynFusion, bitwise, for marching cubes and unique edges, and with a
   capacity that overflows inside rank 1's block;
@@ -73,6 +75,7 @@ from dynfu_tpu.volume import tsdf as jtv
 from dynfu_tpu.warp import field as jfield
 from dynfu_tpu_torch.core.camera import Intr
 from dynfu_tpu_torch.dist import runtime, shard_gram, spmd, worker
+from dynfu_tpu_torch.engine import dynfusion as tdyn
 from dynfu_tpu_torch.engine.dynfusion import DynFusion
 from dynfu_tpu_torch.io.app import dataset_params, run_dataset
 from dynfu_tpu_torch.ops import compaction, imgproc, warp_cuda
@@ -130,6 +133,14 @@ FUSION_VARIANTS = {
                                     fusion_warmup_frames=1),
 }
 RESUME_AFTER = 1  # the resumed drive: edges_se3 saved after frame 1
+# the non-strict engine frame (strict_parity=False) from the parity
+# frame-0 state: the GN solve with the separable integrate, and DLB with
+# the SE(3) solve with the rotated (homography) integrate
+FIXED_FRAMES = {
+    "fixed": (PARAMS, "separable"),
+    "fixed_se3": (dataclasses.replace(PARAMS, solver_rotations=True),
+                  "rotated"),
+}
 # the app in fusion mode: its 64^3 parameters with the capacities cut to
 # the scene (the 640x480 umbrella frames' band holds ~20k voxels; the
 # defaults' 2^19 band slots and 1024 nodes take minutes on the CPU)
@@ -474,6 +485,29 @@ def _jax_parity_frame():
             np.asarray, step(*placed, jeng.canonical_mult))
 
 
+def _unsharded_frame(*, params, state, depth, strict_parity,
+                     integrate_mode):
+    """worker.frame's outputs from the single card's `_nonrigid_frame` (no
+    mesh, no ShardKernels) on the same state and depth."""
+    e = convert.load_engine_state(DynFusion(params, device="cpu"), **state)
+    c = e.canonical
+    (vol, wf, wv, wn, (live_v, live_n, live_m), (soup, n),
+     stats) = tdyn._nonrigid_frame(
+        e.vol, e.warpfield, c.vertices, c.normals, c.mask,
+        torch.as_tensor(depth, dtype=torch.int32), e.poses[-1],
+        dp=e.dynfu_params, intr=e.params.intr, config=e.tsdf_config,
+        parity=strict_parity, canonical_mult=e.canonical_mult, kernels=None,
+        integrate_mode=integrate_mode)
+    n = int(n)
+    return dict(tsdf=vol.tsdf.numpy(), weight=vol.weight.numpy(),
+                wv=wv.numpy(), wn=wn.numpy(), soup=soup[:n].numpy(),
+                n_verts=n, live=live_v[live_m].numpy(),
+                live_n=live_n[live_m].numpy(), pos=wf.pos.numpy(),
+                dqs=wf.dqs.numpy(), w=wf.w.numpy(), mask=wf.mask.numpy(),
+                count=int(wf.count), mc_dropped=int(stats.mc_dropped),
+                corr_dropped=int(stats.corr_dropped))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     # the app's spawned rank, like the job ranks, on one intra-op thread
@@ -520,6 +554,9 @@ def _runs(tmp_path_factory):
     d1 = np.asarray(FRAMES[1], np.int32)
     jobs = [("ops", dict(warp=warp, corr=corr, gram=gram, mono=mono)),
             ("frame", dict(params=PARAMS, state=state, depth=d1))]
+    jobs += [(f"frame/{k}", dict(params=p, state=state, depth=d1,
+                                 strict_parity=False, integrate_mode=m))
+             for k, (p, m) in FIXED_FRAMES.items()]
     jobs += [(f"drive/{k}", dict(params=p, frames=FRAMES))
              for k, p in VARIANTS.items()]
     jobs += [(f"fusion_frame/{k}", dict(params=convert.params(p),
@@ -561,6 +598,10 @@ def _runs(tmp_path_factory):
     fusion = {k: _single_fusion(p) for k, p in FUSION_VARIANTS.items()}
     one["step"] = {name.split("/")[1]: worker.step(mesh1, **kw)
                    for name, kw in jobs if name.startswith("step/")}
+    one["frame"] = {name.split("/")[1]: worker.frame(mesh1, **kw)
+                    for name, kw in jobs if name.startswith("frame/")}
+    one["unsharded"] = {name.split("/")[1]: _unsharded_frame(**kw)
+                        for name, kw in jobs if name.startswith("frame/")}
 
     jfusion.join()
     ranks.join()
@@ -654,6 +695,29 @@ def test_sharded_frame_matches_jax(runs):
     for key in ("dqs", "tsdf", "soup", "wv"):  # every rank the same
         np.testing.assert_array_equal(runs["ranks"][("frame", 1)][key],
                                       got[key])
+
+
+@pytest.mark.parametrize("kind", list(FIXED_FRAMES))
+def test_sharded_nonstrict_frame_equals_one_rank(runs, kind):
+    """sharded_engine_frame(strict_parity=False) on two ranks against one,
+    and the one rank against the single card's unsharded non-strict
+    `_nonrigid_frame` (which tests/test_torch_modes.py holds against JAX):
+    the volume, the warped canonical and its normals, the soup, the live
+    set and its gradient normals (on each block from 3 halo planes), the
+    node state and the drop counts, all bitwise, on both ranks."""
+    want = runs["one"]["frame"][kind]
+    card = runs["one"]["unsharded"][kind]
+    assert sorted(card) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_array_equal(np.asarray(w), card[key], err_msg=key)
+    for r in (0, 1):
+        got = runs["ranks"][(f"frame_{kind}", r)]
+        assert sorted(got) == sorted(want)
+        for key, w in want.items():
+            np.testing.assert_array_equal(got[key], np.asarray(w), err_msg=key)
+    assert int(want["n_verts"]) > 500 and int(want["count"]) > 0
+    assert np.isfinite(want["live_n"]).all(1).mean() > 0.9
+    assert np.abs(want["dqs"][:, 4:]).max() > 0  # the solve moved nodes
 
 
 # --- the driver against the single-card engine -----------------------------

@@ -1022,10 +1022,11 @@ def _jax_fusion_run():
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_refs(request):
-    """The module's JAX engine runs (module_refs): the fusion run and the
-    moving-camera run."""
+    """The module's JAX runs (module_refs): the fusion run, and the JAX
+    side of the block-placement and k-NN tests followed by the
+    moving-camera run (one process: each costs ~9 s of imports)."""
     refs = module_refs(request, {"fusion": _jax_fusion_run,
-                                 "movingcam": _jax_movingcam_run})
+                                 "movingcam": _jax_knn_and_movingcam})
     yield refs
     refs.close()
 
@@ -1130,7 +1131,7 @@ def _jax_movingcam_run():
 
 @pytest.fixture(scope="module")
 def jax_movingcam_run(jax_refs):
-    return jax_refs["movingcam"]
+    return jax_refs["movingcam"][1]
 
 
 def _jax_movingcam_frames():
@@ -1177,6 +1178,227 @@ def test_movingcam_frame_from_jax_state(jax_movingcam_run, k):
 
 
 # --- kernels against their plain versions, on the card --------------------
+
+
+def test_xwindow_tile_placement_at_jax_envelope():
+    """The correspondence's dispatch is the source's (knn.py:553): the
+    tile placement for at most 270,336 points fetching at most 32
+    columns, the block placement beyond either."""
+    assert tknn.TILE_MAX_POINTS == 270336 == (1 << 18) + 8192
+    assert tknn.tile_placement(270336, 32)
+    assert tknn.tile_placement(270336, 3)
+    assert not tknn.tile_placement(270337, 32)
+    assert not tknn.tile_placement(270336, 33)
+
+
+def _block_scene(seed=13, n_pairs=800, n_masked=120, step=2.0 ** -10):
+    """Points on a 2^-10 grid with distinct x, the valid ones in +- pairs
+    (their centre is exactly 0) and masked ones anywhere, shuffled; queries
+    near the valid points, 60 moved 0.25 m (their NN lies outside a
+    one-block window), in a noisy x order; 3 % masked. Every distance, mean
+    and centring is then exact in float32, so JAX's compiled CPU program
+    (which fuses multiply-adds) and the port round nothing differently."""
+    rng = np.random.default_rng(seed)
+    xi = rng.choice(np.arange(1, 1024), n_pairs, replace=False)
+    half = np.stack([xi, rng.integers(-300, 300, n_pairs),
+                     rng.integers(-300, 300, n_pairs)], 1)
+    valid = np.concatenate([half, -half]).astype(np.float32) * step
+    masked = (rng.integers(-1000, 1000, (n_masked, 3)) * step).astype(
+        np.float32)
+    pts = np.concatenate([valid, masked])
+    pmask = np.arange(len(pts)) < len(valid)
+    perm = rng.permutation(len(pts))
+    pts, pmask = pts[perm], pmask[perm]
+    qs = (pts[pmask] + rng.integers(-4, 5, (len(valid), 3)) * step).astype(
+        np.float32)
+    qs[:60] += np.float32(0.25)
+    qs = qs[np.argsort(qs[:, 0] + rng.normal(0, 0.02, len(qs)))]
+    qmask = rng.random(len(qs)) > 0.03
+    vals = rng.normal(size=(len(pts), 5)).astype(np.float32)
+    return pts, pmask, qs, qmask, vals
+
+
+BLOCK_CASES = {
+    "base": dict(window_blocks=1),
+    "tiers": dict(window_blocks=1, escalate=256, rescue=64),
+    "presorted": dict(window_blocks=1, escalate=256, rescue=64,
+                      presorted=True),
+    "no_valid_point": dict(window_blocks=3),
+    "odd_block": dict(window_blocks=2, escalate=256, rescue=64, block=200),
+}
+
+
+def _block_inputs(case):
+    """The scene, the arguments and the keywords of one BLOCK_CASES case."""
+    pts, pmask, qs, qmask, vals = _block_scene()
+    kw = dict({"block": 256}, **BLOCK_CASES[case])
+    if case == "presorted":
+        order = np.argsort(pts[:, 0] + np.where(pmask, 0, 2.0)
+                           + np.random.default_rng(1).normal(0, 0.003,
+                                                             len(pts)))
+        pts, pmask, vals = pts[order], pmask[order], vals[order]
+    if case == "no_valid_point":
+        pmask = np.zeros_like(pmask)
+    return (qs, pts, vals, pmask, qmask), kw
+
+
+def _jax_block_case(case):
+    args, kw = _block_inputs(case)
+    return tuple(np.asarray(o) for o in jknn.nn1_gather_xwindow(
+        *(jnp.asarray(a) for a in args), **kw))
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_nn1_gather_xwindow_block_path_matches_jax(monkeypatch, case,
+                                                   jax_refs):
+    """Beyond the source's kernel envelope (lowered here to 0 points) the
+    port places one window of window_blocks blocks per block of 256
+    queries, as JAX's CPU path always does: exact flags index for index and
+    every fetched row bitwise JAX's, masked queries included (no finite
+    candidate: the window's first row, as JAX's one-hot fetch). "base"
+    leaves certificate failures, which "tiers" escalates and rescues;
+    "presorted" skips the sort (points given in x order but for local
+    swaps; the nearest-block-mean placement); "no_valid_point" masks every
+    point, so no window holds a valid one; "odd_block" takes blocks of 200
+    queries, which the sweep pads to its 256-query tiles."""
+    monkeypatch.setattr(tknn, "TILE_MAX_POINTS", 0)
+    args, kw = _block_inputs(case)
+    qmask = args[4]
+    jv, je = jax_refs["movingcam"][0][("block", case)]
+    tv, te = tknn.nn1_gather_xwindow(*(_t(a) for a in args), **kw)
+    np.testing.assert_array_equal(te.numpy(), je)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    n_exact = int(te.sum())
+    if case == "base":
+        assert 0 < n_exact < int(qmask.sum())
+    elif case == "no_valid_point":
+        assert n_exact == int(qmask.sum())  # gap = inf certifies
+    else:
+        assert n_exact == int(qmask.sum())
+
+
+def _knn_scene(seed=21, D=1024, Q=3000):
+    """Nodes and queries on the 2^-10 grid: both distance forms are then
+    exact (and equal), so near ties cannot order otherwise."""
+    rng = np.random.default_rng(seed)
+    pts = _grid(rng, (D, 3), 0, 1)
+    qs = _grid(rng, (Q, 3), -0.1, 1.1)
+    mask = rng.random(D) > 0.1
+    table = rng.normal(size=(D, 13)).astype(np.float32)
+    return pts, qs, mask, table
+
+
+def _sorted_scene(seed=22, P=4096):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.5, 0.5, (P, 3)).astype(np.float32)
+    qs = (pts + rng.normal(0, 0.01, pts.shape)).astype(np.float32)
+    qs = qs[rng.permutation(P)]
+    mask = rng.random(P) > 0.05
+    vals = rng.normal(size=(P, 22)).astype(np.float32)
+    return pts, qs, mask, vals
+
+
+def _knn_case(name, jax_side: bool):
+    """One k-NN function of ops/knn on its scene: JAX's (jax_side) or the
+    port's outputs as numpy, in the function's return order."""
+    lib, arr = (jknn, jnp.asarray) if jax_side else (tknn, _t)
+    if name in ("nn1_gather_sorted", "nn1_gather"):
+        pts, qs, mask, vals = _sorted_scene()
+        args = (arr(qs), arr(pts), arr(vals), arr(mask))
+        kw = dict(block=512 if name == "nn1_gather_sorted" else 1024)
+    else:
+        pts, qs, mask, table = _knn_scene()
+        args = (arr(qs), arr(pts))
+        kw = {"nn1": {}, "nn1_blocked": dict(block=512),
+              "knn_blocked": dict(block=1024)}.get(name)
+        if name == "knn_gather":
+            args, kw = args + (8, arr(table), arr(mask)), {}
+        elif name == "knn_blocked":
+            args = args + (8, arr(mask))
+        else:
+            args = args + (arr(mask),)
+    return tuple(np.asarray(o) for o in getattr(lib, name)(*args, **kw))
+
+
+KNN_FUNCTIONS = ["nn1", "nn1_blocked", "knn_blocked", "knn_gather",
+                 "nn1_gather_sorted", "nn1_gather"]
+
+
+@pytest.mark.parametrize("name", KNN_FUNCTIONS)
+def test_knn_functions_match_jax(name, jax_refs):
+    """Each k-NN function of the source's ops/knn: indices (and exactness
+    flags) index for index, fetched rows equal (the source's three-term
+    bfloat16 one-hot fetch is exact to float32), distances within 1e-6
+    absolute plus 1e-6 relative. The k-NN scene lies on the 2^-10 grid,
+    where every distance form is exact (JAX's compiled programs fuse
+    multiply-adds, and the kernel's distances are coordinate differences:
+    on general floats the k-th and (k+1)-th nodes' roundoff ~1e-7 can
+    order a near tie otherwise); the 1-NN fetches' scene is in general
+    position, its centring not exact."""
+    got = _knn_case(name, False)
+    want = jax_refs["movingcam"][0][("knn", name)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w.dtype.kind == "f" and name in ("nn1", "nn1_blocked",
+                                            "knn_blocked"):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        elif w.dtype.kind == "f" and g.ndim == 2 and name == "knn_gather":
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, w)
+    if name == "nn1_gather_sorted":
+        assert got[1].all()
+
+
+TIE_FUNCTIONS = (("nn1", ()), ("nn1_blocked", ()), ("knn_blocked", (2,)),
+                 ("knn_gather", (2,)), ("nn1_gather", ()))
+
+
+def _tie_case(jax_side: bool) -> dict:
+    """Each function's indices on exact duplicate points: every node twice
+    (rows i and i + 200), the queries at the nodes."""
+    rng = np.random.default_rng(23)
+    base = rng.uniform(0, 1, (200, 3)).astype(np.float32)
+    pts = np.concatenate([base, base])
+    qs = (base[rng.integers(0, 200, 500)]
+          + rng.normal(0, 1e-3, (500, 3))).astype(np.float32)
+    mask = np.ones(400, bool)
+    table = np.arange(400, dtype=np.float32)[:, None]
+    lib, arr = (jknn, jnp.asarray) if jax_side else (tknn, _t)
+    out = {}
+    for name, args in TIE_FUNCTIONS:
+        extra = (table,) if name in ("knn_gather", "nn1_gather") else ()
+        out[name] = np.asarray(getattr(lib, name)(
+            arr(qs), arr(pts), *args, *(arr(a) for a in extra),
+            arr(mask))[0])
+    return out
+
+
+def test_knn_functions_tie_to_the_lower_index(jax_refs):
+    """On exact duplicate points every function picks the lower index, as
+    JAX's: each node appears twice (rows i and i + 200) and the queries sit
+    at the nodes."""
+    want_all = jax_refs["movingcam"][0]["ties"]
+    for name, got in _tie_case(False).items():
+        want = want_all[name]
+        np.testing.assert_array_equal(got, want)
+        first = got if got.ndim == 1 else got[:, 0]
+        assert (first < 200).all(), name
+        if got.ndim == 2:  # the duplicate comes second
+            np.testing.assert_array_equal(got[:, 1], got[:, 0] + 200)
+
+
+def _jax_knn_and_movingcam():
+    """_jax_knn_refs' results, then _jax_movingcam_run's."""
+    return _jax_knn_refs(), _jax_movingcam_run()
+
+
+def _jax_knn_refs():
+    """The JAX side of the block-placement and k-NN tests, as numpy."""
+    out = {("block", c): _jax_block_case(c) for c in BLOCK_CASES}
+    out.update({("knn", n): _knn_case(n, True) for n in KNN_FUNCTIONS})
+    out["ties"] = _tie_case(True)
+    return out
 
 
 @pytest.fixture
