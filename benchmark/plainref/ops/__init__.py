@@ -1,0 +1,1 @@
+"""ops subpackage of the PyTorch port (see plainref/__init__.py)."""
